@@ -1,0 +1,547 @@
+#!/usr/bin/env python3
+r"""Drive the PyTorch/CUDA port (``robustcap_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits nonzero):
+
+0. the card's name and power limit, as ``nvidia-smi`` gives them;
+1. build every kernel of ``robustcap_tpu_torch/csrc`` with ``nvcc`` (one
+   process per source, all started together);
+2. the LSTM-scan kernel against its plain PyTorch version at the rnn2 and
+   rnn3 full-width shapes (T=256, and 100+156 chained against 256), timed
+   beside the plain version and ``torch.nn.LSTM`` (cuDNN) as a yardstick;
+3. the geometry-tail kernel against its plain version over 320 frames that
+   cover every regime (confidence bands, ring append and snap, live
+   throttle, no landmarks, pose blendshapes on and off), timed per launch;
+4. the main path at full width (``RNN_SPECS``, a 6890-vertex procedural
+   body, random weights from a seed): ``StreamingNet`` with
+   ``SigMPConfig(pallas_inertial=True, pallas_tail=True)`` over a first
+   frame, a confident 64-frame chunk and two mixed 256-frame chunks, held
+   against the same stream with the kernels off; then ``forward_offline``
+   at T=256 with the tail kernel, and a short full-width run against the
+   plain path on the CPU. The launch counters are set to 0 just before each
+   path and read just after; each kernel must have run on it.
+
+It prints a JSON line with every kernel's numbers, and as its last line
+``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
+printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# f32 peak outside the tensor cores and HBM rate of one H100 SXM (NVIDIA's
+# data sheet), for the bounds
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def _time_ms(fn, reps, warmup=2):
+    r"""Mean device time of one ``fn()`` over ``reps`` runs (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _time_graph_ms(fn, reps):
+    r"""Device time of one ``fn()``: ``reps`` calls captured in a CUDA
+    graph and replayed between two events, so the host's cost of issuing
+    each call (Python, argument checks) is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound_ms(n_bytes, n_flops):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _max_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def _require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: the LSTM-scan kernel
+# ---------------------------------------------------------------------------
+
+LSTM_BOUND = 1e-4   # f32 sums in another order, compounded through (h, c)
+
+
+def check_lstm(params, dev, gen):
+    import torch
+    from robustcap_tpu_torch.ops.lstm_scan import (rnn_scan_chunked,
+                                                   rnn_scan_plain)
+    rows = {}
+    for name, n_in in (("rnn2", 72), ("rnn3", 141)):
+        p = params[name]
+        H = p["layers"][0]["w_hh"].shape[1]
+        n_out = p["linear2"]["w"].shape[0]
+        T = 256
+        xs = torch.randn(T, n_in, generator=gen).to(dev)
+        state = tuple((0.5 * torch.randn(2, H, generator=gen)).to(dev)
+                      for _ in range(2))
+        ys, (h, c) = rnn_scan_chunked(p, xs, state)
+        ys_p, (h_p, c_p) = rnn_scan_plain(p, xs, state)
+        y1, st1 = rnn_scan_chunked(p, xs[:100], state)
+        y2, (h2, c2) = rnn_scan_chunked(p, xs[100:], st1)
+        torch.cuda.synchronize()
+        err = max(_max_err(ys, ys_p), _max_err(h, h_p), _max_err(c, c_p))
+        chain = max(_max_err(torch.cat([y1, y2]), ys), _max_err(h2, h),
+                    _max_err(c2, c))
+        _require(bool(torch.isfinite(ys).all()), f"{name}: non-finite")
+        _require(err <= LSTM_BOUND,
+                 f"lstm_scan {name}: kernel vs plain {err:.3e} > "
+                 f"{LSTM_BOUND:.0e}")
+        _require(chain == 0.0,
+                 f"lstm_scan {name}: 100+156 chained vs 256 differ by "
+                 f"{chain:.3e} (the per-frame arithmetic does not depend on "
+                 "where a chunk starts, so they must be equal)")
+
+        ms = _time_ms(lambda: rnn_scan_chunked(p, xs, state), reps=20)
+        plain_ms = _time_graph_ms(lambda: rnn_scan_plain(p, xs, state),
+                                  reps=2)
+        plain_eager_ms = _time_ms(lambda: rnn_scan_plain(p, xs, state),
+                                  reps=2, warmup=1)
+        # yardstick: cuDNN's 2-layer LSTM over the same chunk (the LSTM
+        # layers only; linear1 is applied beforehand and linear2 not at all)
+        lstm = torch.nn.LSTM(H, H, num_layers=2).to(dev)
+        with torch.no_grad():
+            for k, layer in enumerate(p["layers"]):
+                getattr(lstm, f"weight_ih_l{k}").copy_(layer["w_ih"])
+                getattr(lstm, f"weight_hh_l{k}").copy_(layer["w_hh"])
+                getattr(lstm, f"bias_ih_l{k}").copy_(layer["b_ih"])
+                getattr(lstm, f"bias_hh_l{k}").copy_(layer["b_hh"])
+            y_in = torch.relu(xs @ p["linear1"]["w"].T
+                              + p["linear1"]["b"])[:, None]
+            hc = (state[0][:, None].contiguous(),
+                  state[1][:, None].contiguous())
+            lib_ms = _time_ms(lambda: lstm(y_in, hc), reps=20)
+
+        n_w = sum(t.numel() for t in (
+            p["linear1"]["w"], p["linear1"]["b"], p["linear2"]["w"],
+            p["linear2"]["b"], *[layer[k] for layer in p["layers"]
+                                 for k in ("w_ih", "w_hh", "b_ih",
+                                           "b_hh")]))
+        n_bytes = 4 * (n_w + xs.numel() + ys.numel() + 4 * 2 * H)
+        n_flops = T * (2 * (H * n_in + 2 * 4 * H * 2 * H + n_out * H)
+                       + 2 * 10 * H)
+        bound, by = _bound_ms(n_bytes, n_flops)
+        rows[name] = dict(max_abs_err=max(err, chain), ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=by)
+        print(f"[lstm_scan] {name} T={T} H={H} in={n_in} out={n_out}: "
+              f"kernel vs plain {err:.3e} (bound {LSTM_BOUND:.0e}), "
+              f"100+156 chained vs 256 {chain:.3e} (bound 0); kernel "
+              f"{ms:.4f} ms/launch ({ms / T * 1e3:.2f} us/frame), plain "
+              f"{plain_ms:.3f} ms device time in a CUDA graph "
+              f"({plain_eager_ms:.3f} ms issued eagerly), cuDNN nn.LSTM "
+              f"{lib_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by})", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the geometry-tail kernel
+# ---------------------------------------------------------------------------
+
+TAIL_BOUND = 1e-4   # one frame of f32 math, sums in another order
+
+
+def _tail_case(i, gen, dev):
+    r"""Random inputs of one frame; ``i`` picks the regime."""
+    import torch
+    from robustcap_tpu_torch.math.angular import r6d_to_rotation_matrix
+    from robustcap_tpu_torch.models.sig_mp import DEFAULT_GRAVITY
+
+    def rn(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen)).to(dev)
+
+    conf = (0.2, 0.75, 0.95, 0.95)[i % 4]
+    c = torch.tensor(conf, device=dev)
+    carry = {
+        "last_pfoot": rn(2, 3, s=0.5),
+        "has_pfoot": torch.tensor(i % 5 != 0, device=dev),
+        "last_tran": rn(3),
+        "has_tran": torch.tensor(i % 7 != 0, device=dev),
+        "floor_buf": rn(11, 3, s=0.05),
+        "floor_cnt": torch.tensor((i * 5) % 12, dtype=torch.int32,
+                                  device=dev),
+        "vision_count": torch.tensor((0, 1, 30)[i % 3], dtype=torch.int32,
+                                     device=dev),
+        "j_temp": rn(33, 3),
+    }
+    frame = {"first_tran": rn(3),
+             "gravityc": torch.as_tensor(DEFAULT_GRAVITY).to(dev),
+             "first_frame": i % 29 == 0, "first_tran_valid": i % 31 == 0}
+    Rcr = r6d_to_rotation_matrix(torch.randn(1, 6, generator=gen)
+                                 ).reshape(3, 3).to(dev).contiguous()
+    args = dict(out7=rn(144), out8=rn(2, s=2.0), carry=carry, frame=frame,
+                c=c, Rcr=Rcr, vr=rn(3), pc=rn(3, s=0.3),
+                k_lerp=torch.clamp((c - 0.7) * 10.0, 0.0, 1.0))
+    return args
+
+
+def check_tail(models, dev, gen):
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.ops.geometry_tail import (geometry_tail,
+                                                       tail_constants,
+                                                       tail_plain)
+    cfgs = [SigMPConfig(),
+            SigMPConfig(contact_threshold=0.2, height_threshold=5.0),
+            SigMPConfig.live_mode(),
+            SigMPConfig(use_vision_updater=False, use_flat_floor=False),
+            SigMPConfig(tran_filter_num=2.0, distance_threshold=0.5)]
+    consts = [tail_constants(m) for m in models]   # blendshape off, on
+    err, frames, appended, snapped, live_fk = 0.0, 0, 0, 0, 0
+    for i in range(320):
+        cfg = cfgs[i % len(cfgs)]
+        k = (i // len(cfgs)) % 2
+        a = _tail_case(i, gen, dev)
+        got = geometry_tail(consts[k], cfg, **a)
+        want = tail_plain(consts[k], cfg, **a)
+        for field, w in want.items():
+            g = got[field]
+            _require(g.shape == w.shape, f"tail {field}: shape {g.shape} "
+                     f"vs {w.shape}")
+            if w.dtype in (torch.int32, torch.int64):
+                _require(bool((g == w).all()),
+                         f"tail frame {i} {field}: {g} vs {w}")
+            else:
+                e = _max_err(g, w)
+                _require(e <= TAIL_BOUND,
+                         f"tail frame {i} ({cfg}) {field}: {e:.3e} > "
+                         f"{TAIL_BOUND:.0e}")
+                err = max(err, e)
+        frames += 1
+        appended += int(got["floor_cnt"] > a["carry"]["floor_cnt"])
+        snapped += int(got["floor_cnt"] == 11 and float(
+            torch.sigmoid(a["out8"]).max()) > cfg.contact_threshold)
+        live_fk += int(cfg.live and int(a["carry"]["vision_count"]) == 0)
+    torch.cuda.synchronize()
+    _require(appended > 0 and snapped > 0 and live_fk > 0,
+             f"tail regimes not all reached: append {appended}, snap "
+             f"{snapped}, live recompute {live_fk}")
+
+    a = _tail_case(2, gen, dev)
+    cfg = SigMPConfig()
+    ms = _time_graph_ms(lambda: geometry_tail(consts[1], cfg, **a), reps=100)
+    ms_nobs = _time_graph_ms(lambda: geometry_tail(consts[0], cfg, **a),
+                             reps=100)
+    plain_ms = _time_graph_ms(lambda: tail_plain(consts[1], cfg, **a),
+                              reps=20)
+    call_ms = _time_ms(lambda: geometry_tail(consts[1], cfg, **a), reps=200)
+    plain_call_ms = _time_ms(lambda: tail_plain(consts[1], cfg, **a),
+                             reps=20)
+    # bytes: every input and constant read once, every output written once
+    # (blendshape on); operations: ~8K for rotations, IK, FK and
+    # translation, 33 landmarks x (24 x 24 LBS + 3 x 207 x 2 blendshape)
+    tensors = [a["out7"], a["out8"], a["Rcr"], a["vr"], a["pc"], a["c"],
+               a["k_lerp"], *a["carry"].values(), a["frame"]["first_tran"],
+               a["frame"]["gravityc"]]
+    tensors += [consts[1][k] for k in ("parent", "bone", "j0", "wsub",
+                                       "v0sub", "pd")]
+    out = geometry_tail(consts[1], cfg, **a)
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+        t.numel() * t.element_size() for t in out.values())
+    n_flops = 8000 + 33 * (24 * 24 + 3 * 207 * 2)
+    bound, by = _bound_ms(n_bytes, n_flops)
+    print(f"[geometry_tail] {frames} frames, every field within "
+          f"{TAIL_BOUND:.0e} (max {err:.3e}); ring appends {appended}, "
+          f"snaps {snapped}, live recomputes {live_fk}; device time in a "
+          f"CUDA graph: kernel {ms * 1e3:.2f} us/launch with blendshapes, "
+          f"{ms_nobs * 1e3:.2f} us without, plain {plain_ms * 1e3:.1f} us; "
+          f"per call issued from Python: kernel {call_ms * 1e3:.1f} us, "
+          f"plain {plain_call_ms * 1e3:.1f} us; "
+          f"bound {bound * 1e3:.4f} us ({by}, {n_bytes} bytes)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound, bound_by=by)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
+# ---------------------------------------------------------------------------
+
+# Bounds of the main path, kernels against the plain path. Rounding
+# differences of ~1e-7 grow through the random weights: Gram-Schmidt of
+# near-degenerate r6d amplifies them in a few frames, and translation
+# integrates them over the stream. The plain path alone, on the card against
+# the CPU, differs on this stream by a pose p95 of 2.6e-4 and a translation
+# of 6.5 mm after 577 frames (the "control" line; H100 80GB HBM3, 700 W), so
+# the bounds sit a few times above that. A lasting change of meaning (a
+# contact or floor decision flipped) moves translation by centimetres per
+# frame and would cross the translation bound.
+POSE_MEDIAN_BOUND = 1e-4   # per-frame max abs of rotation-matrix entries
+POSE_P95_BOUND = 1e-3
+TRAN_BOUND = 2e-2          # metres
+
+
+def _stream_inputs(seed, conf):
+    r"""Keypoints, IMU accelerations and orientations of a synthetic stream
+    whose per-frame confidence is ``conf``."""
+    import torch
+    from robustcap_tpu_torch.math.angular import r6d_to_rotation_matrix
+    rng = np.random.RandomState(seed)
+    T = len(conf)
+    j2dc = rng.uniform(0.2, 0.9, (T, 33, 3)).astype(np.float32)
+    j2dc[:, :, 2] = np.asarray(conf, np.float32)[:, None]
+    accc = rng.randn(T, 6, 3).astype(np.float32)
+    oric = r6d_to_rotation_matrix(torch.from_numpy(
+        rng.randn(T * 6, 6).astype(np.float32))).reshape(T, 6, 3, 3).numpy()
+    return j2dc, accc, oric
+
+
+def _mixed(T, seed):
+    r"""Mixed confidence with an occluded run in the middle."""
+    rng = np.random.RandomState(seed)
+    conf = rng.choice([0.2, 0.75, 0.95, 0.95], T).astype(np.float32)
+    conf[T // 3:T // 3 + 40] = 0.1
+    return conf
+
+
+def _compare(name, a, b, marks=(), bounds=(POSE_MEDIAN_BOUND, POSE_P95_BOUND,
+                                           TRAN_BOUND)):
+    r"""Print pose per-frame max-abs median/p95 and translation max abs of
+    two runs; return whether they are within ``bounds``. ``marks`` are
+    frame counts at which the running translation error is printed too."""
+    import torch
+    (pose_a, tran_a), (pose_b, tran_b) = a, b
+    for x in (pose_a, tran_a, pose_b, tran_b):
+        _require(bool(torch.isfinite(x).all()), f"{name}: non-finite")
+    per_frame = (pose_a - pose_b).abs().flatten(1).amax(1).double()
+    med = float(per_frame.median())
+    p95 = float(torch.quantile(per_frame, 0.95))
+    tran_err = (tran_a.double() - tran_b.double()).abs().amax(1)
+    tmax = float(tran_err.max())
+    growth = ", ".join(f"{float(tran_err[:n].max()):.2e} by frame {n}"
+                       for n in marks)
+    ok = med <= bounds[0] and p95 <= bounds[1] and tmax <= bounds[2]
+    print(f"[main] {name}: pose per-frame max-abs median {med:.3e} "
+          f"(bound {bounds[0]:.0e}), p95 {p95:.3e} (bound {bounds[1]:.0e}); "
+          f"tran max abs {tmax:.3e} m (bound {bounds[2]:.0e})"
+          + (f"; tran error {growth}" if growth else "")
+          + ("" if ok else "  <-- OUTSIDE"), flush=True)
+    return ok
+
+
+def run_stream(net, first, chunks):
+    import torch
+    times, outs = [], []
+    sync = torch.cuda.synchronize if net.device.type == "cuda" else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    pose, tran = net.forward_online(first[0][0], first[1][0], first[2][0],
+                                    first_tran=np.zeros(3, np.float32),
+                                    first_frame=True)
+    sync()
+    times.append(("first frame", 1, time.perf_counter() - t0))
+    outs.append((pose[None], tran[None]))
+    for label, chunk in chunks:
+        t0 = time.perf_counter()
+        out = net.forward_chunk(*chunk)
+        sync()
+        times.append((label, len(chunk[0]), time.perf_counter() - t0))
+        outs.append(out)
+    return (tuple(torch.cat(x).cpu() for x in zip(*outs)), times)
+
+
+def check_main(params, model, dev):
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import geometry_tail, lstm_scan
+    from robustcap_tpu_torch.smpl import ParametricModel
+
+    first = _stream_inputs(1, [0.2])
+    chunks = [("confident chunk", _stream_inputs(2, [0.95] * 64)),
+              ("mixed chunk 1", _stream_inputs(3, _mixed(256, 3))),
+              ("mixed chunk 2", _stream_inputs(4, _mixed(256, 4)))]
+    n_frames = 1 + sum(len(c[1][0]) for c in chunks)
+    marks = (65, 321, 577)
+    ok = True
+
+    on_cfg = SigMPConfig(pallas_inertial=True, pallas_tail=True)
+    net = sig_mp.StreamingNet(params, model, on_cfg, device=dev)
+    lstm_scan.LAUNCHES = 0
+    geometry_tail.LAUNCHES = 0
+    on, t_on = run_stream(net, first, chunks)
+    launches = {"lstm_scan": lstm_scan.LAUNCHES,
+                "geometry_tail": geometry_tail.LAUNCHES}
+    print(f"[main] StreamingNet (pallas_inertial, pallas_tail): launches "
+          f"{launches} over {n_frames} frames", flush=True)
+    _require(list(net._chunk_steps) == [False, True],
+             "the stream did not reach the LSTM-scan path")
+    _require(launches["lstm_scan"] == 4,
+             "expected 4 LSTM-scan launches (rnn2 and rnn3 in each of the "
+             "two chunks after first_reach cleared)")
+    _require(launches["geometry_tail"] == n_frames,
+             "expected one tail launch per frame")
+
+    off, t_off = run_stream(sig_mp.StreamingNet(params, model, SigMPConfig(),
+                                                device=dev), first, chunks)
+    for (label, n, s_on), (_, _, s_off) in zip(t_on, t_off):
+        print(f"[main] {label} ({n} frames): {s_on / n * 1e3:.3f} ms/frame "
+              f"kernels on, {s_off / n * 1e3:.3f} ms/frame kernels off "
+              "(host clock, synchronized)", flush=True)
+    inertial, _ = run_stream(sig_mp.StreamingNet(
+        params, model, SigMPConfig(pallas_inertial=True), device=dev),
+        first, chunks)
+    tail_only, _ = run_stream(sig_mp.StreamingNet(
+        params, model, SigMPConfig(pallas_tail=True), device=dev),
+        first, chunks)
+
+    # control: the same stream through the plain path on the CPU, full width
+    cpu = torch.device("cpu")
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    model_cpu = ParametricModel(data=model.data, device=cpu)
+    t0 = time.perf_counter()
+    ref, _ = run_stream(sig_mp.StreamingNet(params_cpu, model_cpu,
+                                            SigMPConfig(), device=cpu),
+                        first, chunks)
+    print(f"[main] CPU plain stream: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    ok &= _compare("stream, kernels on vs off (card)", on, off, marks)
+    ok &= _compare("stream, LSTM-scan kernel only vs off (card)", inertial,
+                   off, marks)
+    ok &= _compare("stream, tail kernel only vs off (card)", tail_only, off,
+                   marks)
+    _compare("control: stream, plain on the card vs plain on the CPU", off,
+             ref, marks)
+    ok &= _compare("stream, kernels on (card) vs plain on the CPU", on, ref,
+                   marks)
+
+    # forward_offline with the tail kernel, T=256
+    seq = _stream_inputs(5, _mixed(256, 5))
+    tail_cfg = SigMPConfig(pallas_tail=True)
+    geometry_tail.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off_on = sig_mp.forward_offline(params, model, tail_cfg, *seq,
+                                    first_frame=True, device=dev)
+    torch.cuda.synchronize()
+    s_on = time.perf_counter() - t0
+    tail_launches = geometry_tail.LAUNCHES
+    _require(tail_launches == 256, f"forward_offline: {tail_launches} tail "
+             "launches, expected 256")
+    t0 = time.perf_counter()
+    off_off = sig_mp.forward_offline(params, model, SigMPConfig(), *seq,
+                                     first_frame=True, device=dev)
+    torch.cuda.synchronize()
+    s_off = time.perf_counter() - t0
+    ok &= _compare("forward_offline T=256, tail kernel on vs off",
+                   tuple(x.cpu() for x in off_on),
+                   tuple(x.cpu() for x in off_off), (64, 128, 256))
+    print(f"[main] forward_offline: {tail_launches} tail launches; "
+          f"{s_on / 256 * 1e3:.3f} ms/frame tail kernel, "
+          f"{s_off / 256 * 1e3:.3f} ms/frame plain tail", flush=True)
+    _require(ok, "main path outside its bounds (see the lines above)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "drives the port on a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import _build
+    from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip(), flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"[build] {len(libs)} kernels built from csrc/ in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{[os.path.basename(p) for p in libs]}", flush=True)
+
+    gen = torch.Generator().manual_seed(0)
+    params = sig_mp.init_params(gen, device=dev)
+    data = synthetic_smpl_data()
+    model = ParametricModel(data=data, device=dev)
+    model_bs = ParametricModel(data=data, use_pose_blendshape=True,
+                               device=dev)
+
+    lstm = check_lstm(params, dev, gen)
+    tail = check_tail([model, model_bs], dev, gen)
+    launches = check_main(params, model, dev)
+
+    kernels = [
+        dict(name="lstm_scan", route="cuda",
+             source="robustcap_tpu_torch/csrc/lstm_scan.cu",
+             replaces="robustcap_tpu/ops/pallas_lstm.py:166",
+             launches=launches["lstm_scan"],
+             max_abs_err=max(r["max_abs_err"] for r in lstm.values()),
+             **{k: v for k, v in lstm["rnn2"].items() if k != "max_abs_err"}),
+        dict(name="geometry_tail", route="cuda",
+             source="robustcap_tpu_torch/csrc/geometry_tail.cu",
+             replaces="robustcap_tpu/ops/pallas_tail.py:468",
+             launches=launches["geometry_tail"], **tail),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

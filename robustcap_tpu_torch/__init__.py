@@ -1,0 +1,14 @@
+r"""RobustCap in PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of the JAX package ``robustcap_tpu`` (which stays the reference it is
+tested against). This package imports ``torch``, never ``jax``, and nothing
+of ``robustcap_tpu``. Its entry points run on the CUDA card unless the caller
+passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
+PyTorch version instead.
+
+Ported so far: the single-stream SigMP path (``models.sig_mp``:
+``forward_offline`` and ``StreamingNet``) with the LSTM-scan kernel
+(``ops.lstm_scan``) and the geometry-tail kernel (``ops.geometry_tail``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,100 @@
+r"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
+``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside the package
+(a directory ``.gitignore`` lists), loaded with ``ctypes``. The hash covers
+the source and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Nothing is built when a module is imported: the kernel
+wrappers call :func:`load` on their first launch, and :func:`build_all`
+compiles every source at once, one ``nvcc`` process each, all started
+together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, Iterable, List
+
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "library_path",
+           "build_all", "load"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("lstm_scan", "geometry_tail")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (searched PATH and $CUDA_HOME/bin): "
+                       "the CUDA kernels build only on a host with the CUDA "
+                       "toolkit")
+
+
+def library_path(name: str) -> str:
+    r"""Where ``csrc/<name>.cu`` builds to, keyed by its content and flags."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    r"""Start ``nvcc`` for one source into a temporary file; returns
+    ``(process, tmp_path, final_path)`` or ``None`` when already built."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build_all(names: Iterable[str] = SOURCES) -> List[str]:
+    r"""Compile the named sources in parallel (one ``nvcc`` each) and return
+    their library paths. Raises with the compiler's output if one fails."""
+    names = list(names)
+    jobs = [(n, _start(n)) for n in names]
+    errors = []
+    for name, job in jobs:
+        if job is None:
+            continue
+        proc, tmp, out = job
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(n) for n in names]
+
+
+def load(name: str) -> ctypes.CDLL:
+    r"""The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = build_all([name])[0]
+            lib = ctypes.CDLL(path)
+            _LOADED[name] = lib
+        return lib
