@@ -21,7 +21,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
    against the same stream with the kernels off; then ``forward_offline``
    at T=256 with the tail kernel, and a short full-width run against the
    plain path on the CPU. The launch counters are set to 0 just before each
-   path and read just after; each kernel must have run on it.
+   path and read just after; each kernel must have run on it. The serve
+   path follows on the same stream: ``StreamingNet`` with
+   ``SigMPConfig(pallas_serve=True)`` (one serve launch per chunk) and
+   ``forward_offline`` with ``pallas_serve`` at T=256 (one launch), each
+   held against the kernels-off path;
+5. the serve kernel against its plain version (``serve_scan_plain``, a frame
+   loop of the branchless steady step) on the card at full width: a mixed
+   256-frame chunk and a ``SigMPConfig.live_mode()`` chunk, 100+156 chained
+   against 256, timed per launch beside the plain version in a CUDA graph.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -392,7 +400,7 @@ def check_main(params, model, dev):
     from robustcap_tpu_torch.config import SigMPConfig
     from robustcap_tpu_torch.device import tree_map
     from robustcap_tpu_torch.models import sig_mp
-    from robustcap_tpu_torch.ops import geometry_tail, lstm_scan
+    from robustcap_tpu_torch.ops import geometry_tail, lstm_scan, serve_scan
     from robustcap_tpu_torch.smpl import ParametricModel
 
     first = _stream_inputs(1, [0.2])
@@ -422,9 +430,23 @@ def check_main(params, model, dev):
 
     off, t_off = run_stream(sig_mp.StreamingNet(params, model, SigMPConfig(),
                                                 device=dev), first, chunks)
-    for (label, n, s_on), (_, _, s_off) in zip(t_on, t_off):
+
+    # the serve path: one launch per chunk
+    serve_net = sig_mp.StreamingNet(params, model,
+                                    SigMPConfig(pallas_serve=True),
+                                    device=dev)
+    serve_scan.LAUNCHES = 0
+    serve, t_serve = run_stream(serve_net, first, chunks)
+    launches["serve_scan"] = serve_scan.LAUNCHES
+    print(f"[main] StreamingNet (pallas_serve): {launches['serve_scan']} "
+          f"serve launches over {len(chunks)} chunks", flush=True)
+    _require(launches["serve_scan"] == len(chunks),
+             "expected one serve launch per chunk")
+    for (label, n, s_on), (_, _, s_off), (_, _, s_sv) in zip(t_on, t_off,
+                                                             t_serve):
         print(f"[main] {label} ({n} frames): {s_on / n * 1e3:.3f} ms/frame "
-              f"kernels on, {s_off / n * 1e3:.3f} ms/frame kernels off "
+              f"kernels on, {s_off / n * 1e3:.3f} ms/frame kernels off, "
+              f"{s_sv / n * 1e3:.3f} ms/frame serve kernel "
               "(host clock, synchronized)", flush=True)
     inertial, _ = run_stream(sig_mp.StreamingNet(
         params, model, SigMPConfig(pallas_inertial=True), device=dev),
@@ -449,6 +471,7 @@ def check_main(params, model, dev):
                    off, marks)
     ok &= _compare("stream, tail kernel only vs off (card)", tail_only, off,
                    marks)
+    ok &= _compare("stream, serve kernel vs off (card)", serve, off, marks)
     _compare("control: stream, plain on the card vs plain on the CPU", off,
              ref, marks)
     ok &= _compare("stream, kernels on (card) vs plain on the CPU", on, ref,
@@ -475,11 +498,136 @@ def check_main(params, model, dev):
     ok &= _compare("forward_offline T=256, tail kernel on vs off",
                    tuple(x.cpu() for x in off_on),
                    tuple(x.cpu() for x in off_off), (64, 128, 256))
-    print(f"[main] forward_offline: {tail_launches} tail launches; "
+    serve_scan.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off_serve = sig_mp.forward_offline(params, model,
+                                       SigMPConfig(pallas_serve=True), *seq,
+                                       first_frame=True, device=dev)
+    torch.cuda.synchronize()
+    s_serve = time.perf_counter() - t0
+    launches["serve_scan_offline"] = serve_scan.LAUNCHES
+    _require(launches["serve_scan_offline"] == 1,
+             f"forward_offline: {launches['serve_scan_offline']} serve "
+             "launches, expected 1")
+    ok &= _compare("forward_offline T=256, serve kernel vs plain step",
+                   tuple(x.cpu() for x in off_serve),
+                   tuple(x.cpu() for x in off_off), (64, 128, 256))
+    print(f"[main] forward_offline: {tail_launches} tail launches, "
+          f"{launches['serve_scan_offline']} serve launch; "
           f"{s_on / 256 * 1e3:.3f} ms/frame tail kernel, "
-          f"{s_off / 256 * 1e3:.3f} ms/frame plain tail", flush=True)
+          f"{s_serve / 256 * 1e3:.3f} ms/frame serve kernel, "
+          f"{s_off / 256 * 1e3:.3f} ms/frame plain", flush=True)
     _require(ok, "main path outside its bounds (see the lines above)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the serve kernel
+# ---------------------------------------------------------------------------
+
+
+def _serve_work(prepped, frames, n_iu):
+    r"""(bytes, operations) the serve function needs on a non-live chunk:
+    every weight, frame input and carry field read once, every output
+    written once; six stack evaluations per frame with rnn7/rnn8 twice, two
+    tails, and init_net on the ``n_iu`` frames where the IMU updater
+    fires."""
+    T = len(frames["conf"])
+    n_w, flops = 0, 0
+    for name, s in prepped["stacks"].items():
+        H, n_in, n_out = s["H"], s["in"], s["out"]
+        n_w += (H * n_in + H + 2 * (2 * 4 * H * H + 4 * H) + n_out * H
+                + n_out)
+        per = 2 * (H * n_in + 2 * 4 * H * 2 * H + n_out * H) + 2 * 10 * H
+        flops += T * per * (2 if name in ("rnn7", "rnn8") else 1)
+    for w, b in prepped["init"]:
+        n_w += w.numel() + b.numel()
+        flops += n_iu * 2 * w.numel()
+    flops += T * 2 * (8000 + 33 * 24 * 24)
+    # frame inputs (in2, raw72, keypoints twice, Rcr, c, k, flags, first
+    # tran, gravity), outputs (pose, tran, contact), carry in and out
+    n_frame = T * (72 + 72 + 99 + 99 + 9 + 1 + 1 + 2 + 3 + 3)
+    n_out = T * (216 + 3 + 2)
+    n_carry = 2 * sum(2 * 2 * s["H"] for s in prepped["stacks"].values()) \
+        + 2 * (6 + 3 + 33 + 99 + 4)
+    return 4 * (n_w + n_frame + n_out + n_carry), flops
+
+
+def check_serve(params, model, dev):
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import serve_scan as S
+    from robustcap_tpu_torch.ops.geometry_tail import tail_constants
+
+    prepped = S.prepare_serve_params(params)
+    consts = tail_constants(model)
+    T, ok, row = 256, True, None
+    for label, cfg, seed in (("mixed", SigMPConfig(), 6),
+                             ("live", SigMPConfig.live_mode(), 7)):
+        conf = _mixed(T, seed)
+        conf[:4] = 0.2   # the IMU updater fires on the first confident frame
+        frames = sig_mp._sequence_frames(
+            *_stream_inputs(seed, conf), np.zeros(3, np.float32), True, None,
+            dev)
+        carry = sig_mp.prescan_first_frame(params, model,
+                                           sig_mp.init_carry(params),
+                                           sig_mp._frame_at(frames, 0))
+        got = S.serve_scan(prepped, consts, cfg, frames, carry)
+        want = S.serve_scan_plain(prepped, consts, cfg, frames, carry)
+        first = {k: v[:100] for k, v in frames.items()}
+        rest = {k: v[100:] for k, v in frames.items()}
+        a = S.serve_scan(prepped, consts, cfg, first, carry)
+        b = S.serve_scan(prepped, consts, cfg, rest, a[3])
+        torch.cuda.synchronize()
+        ok &= _compare(f"serve_scan {label} T={T}, kernel vs plain (card)",
+                       (got[0].cpu(), got[1].cpu()),
+                       (want[0].cpu(), want[1].cpu()), (64, 128, 256))
+        err = max(_max_err(x, y) for x, y in zip(got[:3], want[:3]))
+        st_err = max(_max_err(got[3]["states"][n][i], want[3]["states"][n][i])
+                     for n in want[3]["states"] for i in (0, 1))
+        chain = max(_max_err(torch.cat([x, y]), z)
+                    for x, y, z in zip(a[:3], b[:3], got[:3]))
+        chain = max([chain] + [
+            _max_err(b[3]["states"][n][i], got[3]["states"][n][i])
+            for n in got[3]["states"] for i in (0, 1)])
+        _require(chain == 0.0,
+                 f"serve_scan {label}: 100+156 chained vs 256 differ by "
+                 f"{chain:.3e} (the per-frame arithmetic does not depend on "
+                 "where a chunk starts, so they must be equal)")
+        _require(all(bool(torch.isfinite(x).all()) for x in got[:3]),
+                 f"serve_scan {label}: non-finite output")
+        flags = {k: (int(got[3][k]), int(want[3][k]))
+                 for k in ("floor_cnt", "vision_count", "first_reach")}
+        ms = _time_ms(lambda: S.serve_scan(prepped, consts, cfg, frames,
+                                           carry), reps=3, warmup=1)
+        plain_ms = _time_graph_ms(
+            lambda: S.serve_scan_plain(prepped, consts, cfg, frames, carry),
+            reps=1)
+        # a fresh carry: the IMU updater fires on the first confident frame
+        n_iu = int((conf >= np.float32(cfg.conf_range[1])).any())
+        n_bytes, n_flops = _serve_work(prepped, frames, n_iu)
+        bound, by = _bound_ms(n_bytes, n_flops)
+        # the bank is five times the L2: streamed once per frame, with
+        # rnn7/rnn8 twice
+        stream_ms = T * 4 * sum(
+            (s["H"] * s["in"] + 16 * s["H"] * s["H"] + s["out"] * s["H"])
+            * (2 if n in ("rnn7", "rnn8") else 1)
+            for n, s in prepped["stacks"].items()) / PEAK_BYTES * 1e3
+        print(f"[serve_scan] {label} T={T}: kernel vs plain pose/tran/"
+              f"contact max {err:.3e}, states max {st_err:.3e}, carry "
+              f"flags (kernel, plain) {flags}; 100+156 chained vs 256 "
+              f"{chain:.3e} (bound 0); kernel {ms:.3f} ms/launch "
+              f"({ms / T * 1e3:.2f} us/frame), plain {plain_ms:.3f} ms "
+              f"device time in a CUDA graph; bound {bound:.4f} ms ({by}, "
+              f"{n_bytes} bytes, {n_flops} operations); weights streamed "
+              f"once per frame would take {stream_ms:.3f} ms", flush=True)
+        if row is None:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound, bound_by=by)
+    _require(ok, "serve kernel outside its bounds (see the lines above)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +647,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -523,6 +672,7 @@ def main():
     lstm = check_lstm(params, dev, gen)
     tail = check_tail([model, model_bs], dev, gen)
     launches = check_main(params, model, dev)
+    serve = check_serve(params, model, dev)
 
     kernels = [
         dict(name="lstm_scan", route="cuda",
@@ -535,7 +685,12 @@ def main():
              source="robustcap_tpu_torch/csrc/geometry_tail.cu",
              replaces="robustcap_tpu/ops/pallas_tail.py:468",
              launches=launches["geometry_tail"], **tail),
+        dict(name="serve_scan", route="cuda",
+             source="robustcap_tpu_torch/csrc/serve_scan.cu",
+             replaces="robustcap_tpu/ops/pallas_serve.py:930",
+             launches=launches["serve_scan"], **serve),
     ]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,11 +38,13 @@ class SigMPConfig:
 
     ``pallas_inertial`` runs the rnn2/rnn3 chunk pre-scan through the
     LSTM-scan kernel (``ops/lstm_scan.py``), ``pallas_tail`` the per-frame
-    geometry tail through the tail kernel (``ops/geometry_tail.py``). The
-    names are kept from the JAX package so one config value means the same
-    thing in both. ``pallas_serve`` (the whole-chunk serving kernel) and
-    ``int8_compute`` are not ported yet: the entry points raise
-    ``NotImplementedError`` for them.
+    geometry tail through the tail kernel (``ops/geometry_tail.py``), and
+    ``pallas_serve`` the whole steady step of ``forward_offline`` and
+    ``StreamingNet.forward_chunk`` through the serve kernel
+    (``ops/serve_scan.py``, dense float32 weights, one launch per chunk).
+    The names are kept from the JAX package so one config value means the
+    same thing in both. ``int8_compute`` is not ported yet: the entry
+    points raise ``NotImplementedError`` for it.
     """
     hidden_size: int = 512
     imu_num: int = 6

@@ -23,12 +23,17 @@
 // each block's weight slice in shared memory, and bf16 weights, are later
 // steps.
 //
+// The per-unit gate and cell code is shared with the serve kernel
+// (lstm_cell.cuh).
+//
 // Plain C interface for ctypes: lstm_scan_launch returns the CUDA error code
 // of the launch (0 on success).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lstm_cell.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -57,38 +62,10 @@ struct Args {
   int T, in, H, out;
 };
 
-// Dot product of one weight row (global, read-only for the launch) with a
-// vector in shared memory, reduced across the warp; every lane gets the sum.
-__device__ __forceinline__ float warp_dot(const float* __restrict__ w,
-                                          const float* v, int n, int lane) {
-  float acc = 0.f;
-  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0) {
-    const float4* w4 = reinterpret_cast<const float4*>(w);
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-    for (int k = lane; k < (n >> 2); k += 32) {
-      const float4 a = __ldg(w4 + k);
-      const float4 b = v4[k];
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
-    }
-  } else {
-    for (int k = lane; k < n; k += 32) acc = fmaf(__ldg(w + k), v[k], acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
 // One LSTM layer for this frame: gates of [x ; h_prev], cell update by the
-// owning warp's lane 0. x and h_prev were written by other blocks before the
-// last grid barrier, so they are read with plain (coherent) loads.
+// owning warp's lane 0, c updated in place. x and h_prev were written by
+// other blocks before the last grid barrier, so they are read with plain
+// (coherent) loads.
 __device__ void lstm_layer(const Args& a, int l, const float* x,
                            const float* h_prev, float* h_next, float* sv,
                            int gw, int nw, int lane) {
@@ -98,31 +75,21 @@ __device__ void lstm_layer(const Args& a, int l, const float* x,
     sv[H + k] = h_prev[k];
   }
   __syncthreads();
-  float* c = a.cN + l * H;
-  for (int j = gw; j < H; j += nw) {
-    float z[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const size_t r = static_cast<size_t>(g) * H + j;
-      z[g] = warp_dot(a.wih[l] + r * H, sv, H, lane) +
-             warp_dot(a.whh[l] + r * H, sv + H, H, lane);
-    }
-    if (lane == 0) {
-      float b[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const int r = g * H + j;
-        b[g] = a.bih[l][r] + a.bhh[l][r];
-      }
-      const float ig = sigmoidf(z[0] + b[0]);
-      const float fg = sigmoidf(z[1] + b[1]);
-      const float gg = tanhf(z[2] + b[2]);
-      const float og = sigmoidf(z[3] + b[3]);
-      const float cn = fg * c[j] + ig * gg;
-      c[j] = cn;
-      h_next[j] = og * tanhf(cn);
-    }
-  }
+  LstmLayer L;
+  L.wih = a.wih[l];
+  L.whh = a.whh[l];
+  L.bih = a.bih[l];
+  L.bhh = a.bhh[l];
+  L.x = sv;
+  L.h_prev = sv + H;
+  L.c_in = a.cN + l * H;
+  L.c_out = a.cN + l * H;
+  L.h_out = h_next;
+  L.h_state = nullptr;
+  L.H = H;
+  L.commit = kCommitAlways;
+  L.mask = true;
+  for (int j = gw; j < H; j += nw) lstm_unit(L, j, lane);
 }
 
 __global__ void __launch_bounds__(kThreads) lstm_scan_kernel(Args a) {

@@ -30,10 +30,13 @@ Network bank — all 2-layer LSTMs, torch-layout params:
   rnn8 | 72 + 69                        | 2     | 512
 
 ``cfg.pallas_tail`` runs the geometry tail through its CUDA kernel
-(``ops/geometry_tail.py``) and ``cfg.pallas_inertial`` the rnn2/rnn3 chunk
-pre-scan through the LSTM-scan kernel (``ops/lstm_scan.py``); the flag names
-are the JAX package's. ``cfg.pallas_serve`` and ``cfg.int8_compute`` are not
-ported yet and raise ``NotImplementedError``.
+(``ops/geometry_tail.py``), ``cfg.pallas_inertial`` the rnn2/rnn3 chunk
+pre-scan through the LSTM-scan kernel (``ops/lstm_scan.py``), and
+``cfg.pallas_serve`` the whole steady step of ``forward_offline`` and
+``StreamingNet.forward_chunk`` through the serve kernel
+(``ops/serve_scan.py``, one launch per chunk); the flag names are the JAX
+package's. ``cfg.int8_compute`` is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,11 +55,13 @@ from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
 from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_constants,
                                  tail_plain)
 from ..ops.lstm_scan import rnn_scan_chunked
+from ..ops.serve_scan import (check_serve_cfg, prepare_serve_params,
+                              serve_scan)
 
 __all__ = [
     "RNN_SPECS", "DEFAULT_GRAVITY", "init_params", "init_carry", "make_frame",
-    "make_step", "prescan_first_frame", "forward_offline", "StreamingNet",
-    "get_bbox_scale", "sync_mp3d",
+    "make_step", "step_from_constants", "prescan_first_frame",
+    "forward_offline", "StreamingNet", "get_bbox_scale", "sync_mp3d",
 ]
 
 # (input_size, output_size, hidden_size, dropout, with_init_net)
@@ -77,9 +82,7 @@ _HOST_KEYS = ("conf", "first_frame", "first_tran_valid")
 
 def _check_cfg(cfg: SigMPConfig):
     if cfg.pallas_serve:
-        raise NotImplementedError(
-            "cfg.pallas_serve (the whole-chunk serving kernel) is ported in "
-            "a later slice")
+        check_serve_cfg(cfg)
     if cfg.int8_compute:
         raise NotImplementedError(
             "cfg.int8_compute (int8 gate matmuls) is ported in a later slice")
@@ -115,14 +118,14 @@ def get_bbox_scale(uv: torch.Tensor) -> torch.Tensor:
 
 def _bbox_center_normalize(j2dc: torch.Tensor) -> torch.Tensor:
     r"""Divide keypoint x/y by the bbox scale, then root-center every row
-    except row 23 around the (pre-centering) row 23. The scale is guarded
-    with 1e-6: the step also evaluates this on all-zero placeholder frames,
-    and a NaN here would leak into carried state."""
-    scale = torch.clamp_min(get_bbox_scale(j2dc), 1e-6)
-    xy = j2dc[:, :2] / scale
-    xy_out = xy - xy[23:24]
-    xy_out[23] = xy[23]
-    return torch.cat([xy_out, j2dc[:, 2:]], dim=1)
+    except row 23 around the (pre-centering) row 23; ``j2dc [..., 33, 3]``.
+    The scale is guarded with 1e-6: the step also evaluates this on all-zero
+    placeholder frames, and a NaN here would leak into carried state."""
+    scale = torch.clamp_min(get_bbox_scale(j2dc), 1e-6)[..., None, None]
+    xy = j2dc[..., :2] / scale
+    xy_out = xy - xy[..., 23:24, :]
+    xy_out[..., 23, :] = xy[..., 23, :]
+    return torch.cat([xy_out, j2dc[..., 2:]], dim=-1)
 
 
 def _cat(*xs):
@@ -269,7 +272,23 @@ def make_step(body_model, cfg: SigMPConfig,
               fuse_spec_heads: bool = True,
               cond_updater: bool = False):
     r"""Build ``step(params, carry, frame) -> (carry, (pose, tran))`` over
-    the body model's constants, with the JAX package's semantics.
+    the body model's constants, with the JAX package's semantics (see
+    :func:`step_from_constants` for the options).
+    """
+    return step_from_constants(tail_constants(body_model), cfg,
+                               include_first_frame_step, output_contacts,
+                               precomputed_inertial, fuse_spec_heads,
+                               cond_updater)
+
+
+def step_from_constants(consts, cfg: SigMPConfig,
+                        include_first_frame_step: bool = True,
+                        output_contacts: bool = False,
+                        precomputed_inertial: bool = False,
+                        fuse_spec_heads: bool = True,
+                        cond_updater: bool = False):
+    r""":func:`make_step` over the tail constants of a body model
+    (``ops.geometry_tail.tail_constants``).
 
     ``include_first_frame_step=True`` is the streaming variant with the
     reference's literal structure (two rnn4/rnn6 evaluations when the
@@ -285,8 +304,7 @@ def make_step(body_model, cfg: SigMPConfig,
     either way. ``precomputed_inertial`` reads rnn2/rnn3 outputs from
     ``frame["out2"]``/``frame["out3"]`` (the chunk pre-scan)."""
     _check_cfg(cfg)
-    dev = body_model.device
-    consts = tail_constants(body_model)
+    dev = consts["parent"].device
     tail = geometry_tail if cfg.pallas_tail else tail_plain
     conf_lo, conf_hi = cfg.conf_range
     lo32, hi32 = np.float32(conf_lo), np.float32(conf_hi)
@@ -561,9 +579,11 @@ def forward_offline(params, body_model, cfg, j2dc, accc, oric,
                     first_tran=None, first_frame=False, gravityc=None,
                     return_contacts: bool = False, device="cuda"):
     r"""Whole-sequence inference: the first-frame prescan, then the steady
-    step (``cond_updater=True``) frame by frame. Returns ``(pose [T,24,3,3],
-    tran [T,3])``, plus contacts ``[T, 2]`` with ``return_contacts``. Params
-    and body model must already be on ``device``."""
+    step (``cond_updater=True``) frame by frame, or with ``cfg.pallas_serve``
+    one serve-kernel launch over the whole sequence. Returns ``(pose
+    [T,24,3,3], tran [T,3])``, plus contacts ``[T, 2]`` with
+    ``return_contacts``. Params and body model must already be on
+    ``device``."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     _require_device(params, body_model, dev)
@@ -571,6 +591,11 @@ def forward_offline(params, body_model, cfg, j2dc, accc, oric,
                               gravityc, dev)
     carry = prescan_first_frame(params, body_model, init_carry(params),
                                 _frame_at(frames, 0))
+    if cfg.pallas_serve:
+        pose, tran, contact, _ = serve_scan(
+            prepare_serve_params(params), tail_constants(body_model), cfg,
+            frames, carry)
+        return (pose, tran, contact) if return_contacts else (pose, tran)
     step = make_step(body_model, cfg, include_first_frame_step=False,
                      output_contacts=return_contacts, cond_updater=True)
     outs = []
@@ -584,7 +609,8 @@ class StreamingNet:
     r"""Stateful wrapper with the reference's online API
     (``forward_online`` / ``reset_states``) plus ``forward_chunk``, around
     the steady step (each wide cell once per frame; first frames go through
-    the prescan first)."""
+    the prescan first). With ``cfg.pallas_serve`` the serve kernel's
+    operands are prepared once here and every chunk is one launch."""
 
     def __init__(self, params, body_model, cfg: SigMPConfig = SigMPConfig(),
                  device="cuda"):
@@ -598,6 +624,10 @@ class StreamingNet:
                                include_first_frame_step=False,
                                cond_updater=True)
         self._chunk_steps = {}
+        self._serve = None
+        if cfg.pallas_serve:
+            self._serve = (prepare_serve_params(params),
+                           tail_constants(body_model))
         self.reset_states()
 
     def reset_states(self):
@@ -619,13 +649,21 @@ class StreamingNet:
         chunks like per-frame calls; returns (pose [K, 24, 3, 3], tran
         [K, 3]).
 
-        With ``cfg.pallas_inertial`` the inertial pair (rnn2/rnn3) is
+        With ``cfg.pallas_serve`` the chunk is one launch of the serve
+        kernel, IMU-updater rewrite included. Otherwise, with
+        ``cfg.pallas_inertial`` the inertial pair (rnn2/rnn3) is
         pre-scanned for the whole chunk by the LSTM-scan kernel (their
         inputs are functions of the frame stream alone) and the steps read
         the precomputed outputs. The one-shot IMU-updater state rewrite can
         fire mid-chunk only in the per-frame path, so while ``first_reach``
         is pending (one host fetch per chunk until it clears) chunks take
         that path."""
+        if self._serve is not None:
+            frames = _sequence_frames(j2dc, accc, oric, None, False,
+                                      gravityc, self.device)
+            pose, tran, _, self.carry = serve_scan(
+                *self._serve, self.cfg, frames, self.carry)
+            return pose, tran
         use_kernel = self.cfg.pallas_inertial
         if use_kernel and self.cfg.use_imu_updater:
             if not self._first_reach_cleared:

@@ -3,16 +3,17 @@ r"""Build and load the hand-written CUDA kernels of ``csrc/``.
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside the package
 (a directory ``.gitignore`` lists), loaded with ``ctypes``. The hash covers
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Nothing is built when a module is imported: the kernel
-wrappers call :func:`load` on their first launch, and :func:`build_all`
-compiles every source at once, one ``nvcc`` process each, all started
-together.
+the source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. Nothing
+is built when a module is imported: the kernel wrappers call :func:`load` on
+their first launch, and :func:`build_all` compiles every source at once, one
+``nvcc`` process each, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -27,7 +28,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "library_path",
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_scan", "geometry_tail")
+SOURCES = ("lstm_scan", "geometry_tail", "serve_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,9 +48,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    r"""Where ``csrc/<name>.cu`` builds to, keyed by its content and flags."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    r"""Where ``csrc/<name>.cu`` builds to, keyed by its content, the
+    shared headers' and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -92,6 +92,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])
 def test_unported_options_raise(field):
+    r"""``int8_compute`` is not ported yet; ``pallas_serve`` is, and refuses
+    what the JAX serve path refuses (the reprojection refinement), and the
+    int8 gates it does not have yet."""
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
     from test_torch_tail import SMALL_SPECS
@@ -99,14 +102,22 @@ def test_unported_options_raise(field):
                             device="cpu")
     params = sig_mp.init_params(torch.Generator().manual_seed(0),
                                 SMALL_SPECS, device="cpu")
-    cfg = SigMPConfig(**{field: True})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sig_mp.StreamingNet(params, model, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sig_mp.forward_offline(params, model, cfg, torch.zeros(2, 33, 3),
-                               torch.zeros(2, 6, 3),
-                               torch.eye(3).expand(2, 6, 3, 3),
-                               device="cpu")
+    refusals = [(SigMPConfig(**{field: True}), NotImplementedError,
+                 "later slice")]
+    if field == "pallas_serve":
+        refusals = [
+            (SigMPConfig(pallas_serve=True, use_reproj_opt=True), ValueError,
+             "standard serving configuration"),
+            (SigMPConfig(pallas_serve=True, int8_compute=True),
+             NotImplementedError, "later slice")]
+    for cfg, error, match in refusals:
+        with pytest.raises(error, match=match):
+            sig_mp.StreamingNet(params, model, cfg, device="cpu")
+        with pytest.raises(error, match=match):
+            sig_mp.forward_offline(params, model, cfg, torch.zeros(2, 33, 3),
+                                   torch.zeros(2, 6, 3),
+                                   torch.eye(3).expand(2, 6, 3, 3),
+                                   device="cpu")
 
 
 def test_tail_wrapper_has_no_other_path():
@@ -114,6 +125,26 @@ def test_tail_wrapper_has_no_other_path():
     with pytest.raises(ValueError, match="no geometry-tail path"):
         geometry_tail(None, SigMPConfig(), torch.zeros(144, device="meta"),
                       None, None, None, None, None, None, None, None)
+
+
+def test_serve_wrapper_has_no_other_path():
+    from robustcap_tpu_torch.ops.serve_scan import serve_scan
+    with pytest.raises(ValueError, match="no serve path"):
+        serve_scan(None, None, SigMPConfig(),
+                   {"j2dc": torch.zeros(4, 33, 3, device="meta")}, None)
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    r"""An edited shared header gives a kernel a new library path, so a
+    stale build is never loaded."""
+    from robustcap_tpu_torch.ops import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
