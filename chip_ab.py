@@ -8,7 +8,7 @@ change unpacked side by side with ``git archive``. List them in the order
 to run, such as parent, change, change, parent, so that drift of the card
 over the call falls on both sides. For each ``DIR`` the script prints what
 ``ptxas`` reports for every ``robustcap_tpu_torch/csrc/*.cu`` of that
-checkout (registers, stack, spills), then runs that checkout's
+checkout (each entry function, its registers, stack, spills), then runs that checkout's
 ``chip_smoke.py`` tail and serve phases (3 and 5; a checkout without the
 serve kernel runs phase 3 only) in a fresh process and prints their result
 lines. Needs a CUDA card and ``nvcc``; the cubins go to each checkout's
@@ -21,7 +21,7 @@ import re
 import subprocess
 import sys
 
-_KEEP = re.compile(r"^\[(ptxas|geometry_tail|serve_scan)\]")
+_KEEP = re.compile(r"^\[(ptxas|geometry_tail|serve_scan)\]|^\[main\] serve_scan")
 
 
 def _ptxas(build):
@@ -35,7 +35,8 @@ def _ptxas(build):
                               "-v", "-o", out, src], capture_output=True,
                              text=True, timeout=600, check=True)
         for line in res.stderr.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 print(f"[ptxas] {name}: {line.strip()}", flush=True)
 
 

@@ -25,11 +25,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    path follows on the same stream: ``StreamingNet`` with
    ``SigMPConfig(pallas_serve=True)`` (one serve launch per chunk) and
    ``forward_offline`` with ``pallas_serve`` at T=256 (one launch), each
-   held against the kernels-off path;
+   held against the kernels-off path; then the same stream through the
+   serve kernel's bf16 mode (``cast_params(params, bf16)``) and int8-gate
+   mode (``quantize_params`` with ``SigMPConfig(int8_compute=True)``), whose
+   deltas from the f32 serve path are printed without a bound;
 5. the serve kernel against its plain version (``serve_scan_plain``, a frame
-   loop of the branchless steady step) on the card at full width: a mixed
+   loop of the branchless steady step with the mode's arithmetic) on the
+   card at full width, in each mode (f32, bf16, int8 gates): a mixed
    256-frame chunk and a ``SigMPConfig.live_mode()`` chunk, 100+156 chained
-   against 256, timed per launch beside the plain version in a CUDA graph.
+   against 256, timed per launch beside the plain version in a CUDA graph;
+   on the mixed chunk, kernel and plain version frame by frame from one
+   carry, held within ``STEP_BOUNDS`` beside controls with another
+   arithmetic that must fall outside them; and the carried states of the
+   two chained runs frame by frame, per stack, beside the plain version on
+   the card against the plain version on the CPU.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -38,6 +47,7 @@ printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -46,9 +56,11 @@ import time
 
 import numpy as np
 
-# f32 peak outside the tensor cores and HBM rate of one H100 SXM (NVIDIA's
-# data sheet), for the bounds
+# peaks of one H100 SXM (NVIDIA's data sheet, dense): f32 outside the tensor
+# cores, bf16 and int8 in them, and the HBM rate, for the bounds
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -93,9 +105,12 @@ def _time_graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _bound_ms(n_bytes, n_flops):
+def _bound_ms(n_bytes, n_flops, n_bf16=0, n_int8=0):
+    r"""The larger of the bytes' time and the operations' time, with f32,
+    bf16 and int8 operations each at their own peak."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (n_flops / PEAK_F32_FLOPS + n_bf16 / PEAK_BF16_FLOPS
+             + n_int8 / PEAK_INT8_OPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -351,8 +366,9 @@ def _mixed(T, seed):
 def _compare(name, a, b, marks=(), bounds=(POSE_MEDIAN_BOUND, POSE_P95_BOUND,
                                            TRAN_BOUND)):
     r"""Print pose per-frame max-abs median/p95 and translation max abs of
-    two runs; return whether they are within ``bounds``. ``marks`` are
-    frame counts at which the running translation error is printed too."""
+    two runs; return whether they are within ``bounds`` (``None``: printed
+    only). ``marks`` are frame counts at which the running translation
+    error is printed too."""
     import torch
     (pose_a, tran_a), (pose_b, tran_b) = a, b
     for x in (pose_a, tran_a, pose_b, tran_b):
@@ -364,10 +380,13 @@ def _compare(name, a, b, marks=(), bounds=(POSE_MEDIAN_BOUND, POSE_P95_BOUND,
     tmax = float(tran_err.max())
     growth = ", ".join(f"{float(tran_err[:n].max()):.2e} by frame {n}"
                        for n in marks)
-    ok = med <= bounds[0] and p95 <= bounds[1] and tmax <= bounds[2]
-    print(f"[main] {name}: pose per-frame max-abs median {med:.3e} "
-          f"(bound {bounds[0]:.0e}), p95 {p95:.3e} (bound {bounds[1]:.0e}); "
-          f"tran max abs {tmax:.3e} m (bound {bounds[2]:.0e})"
+    if bounds is None:
+        ok, lim = True, ("", "", "")
+    else:
+        ok = med <= bounds[0] and p95 <= bounds[1] and tmax <= bounds[2]
+        lim = tuple(f" (bound {b:.1e})" for b in bounds)
+    print(f"[main] {name}: pose per-frame max-abs median {med:.3e}{lim[0]}, "
+          f"p95 {p95:.3e}{lim[1]}; tran max abs {tmax:.3e} m{lim[2]}"
           + (f"; tran error {growth}" if growth else "")
           + ("" if ok else "  <-- OUTSIDE"), flush=True)
     return ok
@@ -477,6 +496,29 @@ def check_main(params, model, dev):
     ok &= _compare("stream, kernels on (card) vs plain on the CPU", on, ref,
                    marks)
 
+    # the serve kernel's bf16 and int8-gate modes on the same stream; their
+    # deltas from the f32 serve path are printed without a bound (random
+    # weights make them large)
+    for mode, p, cfg in _serve_modes(params)[1:]:
+        net = sig_mp.StreamingNet(p, model, dataclasses.replace(
+            cfg, pallas_serve=True), device=dev)
+        serve_scan.LAUNCHES = 0
+        out, t_mode = run_stream(net, first, chunks)
+        key = f"serve_scan_{mode}"
+        launches[key] = serve_scan.LAUNCHES
+        _require(launches[key] == len(chunks),
+                 f"{mode} serve path: {launches[key]} launches, expected one "
+                 "per chunk")
+        _require(all(bool(torch.isfinite(x).all()) for x in out),
+                 f"{mode} serve path: non-finite pose or translation")
+        print(f"[main] StreamingNet (pallas_serve, {mode}): "
+              f"{launches[key]} serve launches; "
+              + ", ".join(f"{label} {sec / n * 1e3:.3f} ms/frame"
+                          for label, n, sec in t_mode[1:])
+              + " (host clock, synchronized)", flush=True)
+        _compare(f"stream, serve kernel {mode} vs serve kernel f32 (card)",
+                 out, serve, marks, bounds=None)
+
     # forward_offline with the tail kernel, T=256
     seq = _stream_inputs(5, _mixed(256, 5))
     tail_cfg = SigMPConfig(pallas_tail=True)
@@ -527,31 +569,289 @@ def check_main(params, model, dev):
 # ---------------------------------------------------------------------------
 
 
+def _serve_modes(params):
+    r"""(mode, weights, config) of the serve kernel's three modes."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.nn.rnn import cast_params, quantize_params
+    return (("f32", params, SigMPConfig()),
+            ("bf16", cast_params(params, torch.bfloat16), SigMPConfig()),
+            ("int8", quantize_params(params),
+             SigMPConfig(int8_compute=True)))
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _stack_weights(s):
+    return [s["w1"], *s["w_ih"], *s["w_hh"], s["w2"]]
+
+
 def _serve_work(prepped, frames, n_iu):
-    r"""(bytes, operations) the serve function needs on a non-live chunk:
-    every weight, frame input and carry field read once, every output
-    written once; six stack evaluations per frame with rnn7/rnn8 twice, two
-    tails, and init_net on the ``n_iu`` frames where the IMU updater
-    fires."""
+    r"""(bytes, f32 operations, bf16 operations, int8 operations) the serve
+    function needs on a non-live chunk: every weight (in its mode's type),
+    frame input and carry field read once, every output written once; six
+    stack evaluations per frame with rnn7/rnn8 twice, two tails, and
+    init_net on the ``n_iu`` frames where the IMU updater fires. Products
+    with bf16 or int8 weights count at their type's rate, the gate
+    arithmetic, the quantization and the tails at the f32 rate."""
     T = len(frames["conf"])
-    n_w, flops = 0, 0
+    mode = prepped["mode"]
+    n_bytes, f32, bf16, int8 = 0, 0, 0, 0
     for name, s in prepped["stacks"].items():
         H, n_in, n_out = s["H"], s["in"], s["out"]
-        n_w += (H * n_in + H + 2 * (2 * 4 * H * H + 4 * H) + n_out * H
-                + n_out)
-        per = 2 * (H * n_in + 2 * 4 * H * 2 * H + n_out * H) + 2 * 10 * H
-        flops += T * per * (2 if name in ("rnn7", "rnn8") else 1)
+        n_bytes += _nbytes(*_stack_weights(s), s["b1"], *s["bias"], s["b2"],
+                           *s.get("w_ih_s", ()), *s.get("w_hh_s", ()))
+        reps = T * (2 if name in ("rnn7", "rnn8") else 1)
+        dense = 2 * (H * n_in + n_out * H)
+        gates = 2 * 2 * 4 * H * 2 * H
+        f32 += reps * 2 * 10 * H
+        if mode == "f32":
+            f32 += reps * (dense + gates)
+        elif mode == "bf16":
+            bf16 += reps * (dense + gates)
+        else:
+            bf16 += reps * dense
+            int8 += reps * gates
+            f32 += reps * 2 * 2 * 3 * 2 * H   # two quantized rows a layer
     for w, b in prepped["init"]:
-        n_w += w.numel() + b.numel()
-        flops += n_iu * 2 * w.numel()
-    flops += T * 2 * (8000 + 33 * 24 * 24)
+        n_bytes += _nbytes(w, b)
+        f32 += n_iu * 2 * w.numel()
+    f32 += T * 2 * (8000 + 33 * 24 * 24)
     # frame inputs (in2, raw72, keypoints twice, Rcr, c, k, flags, first
     # tran, gravity), outputs (pose, tran, contact), carry in and out
     n_frame = T * (72 + 72 + 99 + 99 + 9 + 1 + 1 + 2 + 3 + 3)
     n_out = T * (216 + 3 + 2)
     n_carry = 2 * sum(2 * 2 * s["H"] for s in prepped["stacks"].values()) \
         + 2 * (6 + 3 + 33 + 99 + 4)
-    return 4 * (n_w + n_frame + n_out + n_carry), flops
+    return n_bytes + 4 * (n_frame + n_out + n_carry), f32, bf16, int8
+
+
+def _stream_ms(prepped, T):
+    r"""The weight-streaming floor: the bank is larger than the 50 MB L2 in
+    every mode, so a chunk's serial frames read every weight once per frame,
+    rnn7/rnn8 twice."""
+    per_frame = sum(_nbytes(*_stack_weights(s))
+                    * (2 if n in ("rnn7", "rnn8") else 1)
+                    for n, s in prepped["stacks"].items())
+    return T * per_frame / PEAK_BYTES * 1e3
+
+
+STATE_MARK = 1e-3   # a carried state's departure that phase 5 dates
+INT8_CONTROL_FRAMES = 32
+
+# How phase 5 holds the kernel against its plain version. Chained over a
+# chunk, the f32 mode is held like the main path (pose per-frame max-abs
+# median and p95, translation max abs). In the bf16 and int8 modes every
+# activation is rounded to bf16 (and in int8 mode quantized) before a
+# product, so two float32 sums in another order now and then fall on the two
+# sides of a rounding boundary, and the one-ulp step then grows through the
+# random-weight recurrence like any perturbation: chained, those modes part
+# as far as the mode is from float32, and their chained runs are printed
+# only. So every mode is also held frame by frame, where nothing compounds:
+# each frame, kernel and plain version start from one carry (the plain
+# version's), and that frame's pose, translation and carried states are
+# compared. ``STEP_BOUNDS``: pose per-frame max-abs median and p95,
+# translation max abs, and the median over frames of the mean carried-state
+# gap. The medians are what tell a right kernel from a wrong one: on most
+# frames no sum crosses a rounding boundary, and kernel and plain version
+# agree to float32 order (pose 2e-7 to 5e-7, mean state gap 4e-9 to 3e-7 in
+# the three modes; H100 80GB HBM3, 700 W), while arithmetic without the
+# mode's rounding moves every frame (pose 3.5e-3 to 1.2e-2, mean state gap
+# 6e-5 to 3e-4). The bounds sit at least 10x above the first and 20x below
+# the second. The p95 and the translation take the frames where a rounding
+# flipped and its one-ulp step ran on through the frame's later stacks;
+# they are bounded at four bf16 ulps of a rotation entry (2^-6) and 0.1 mm.
+# A control shows that the bounds catch a kernel that leaves out the mode's
+# rounding: the plain version with float32 arithmetic on the mode's weights
+# (and, for int8, with bf16 arithmetic and no quantization) must fall
+# outside them.
+STEP_BOUNDS = {"f32": (1e-5, 1e-4, 1e-6, 3e-6),
+               "bf16": (1e-5, 2.0 ** -6, 1e-4, 3e-6),
+               "int8": (1e-5, 2.0 ** -6, 1e-4, 3e-6)}
+
+
+def _frame_by_frame(runs, frames, carry):
+    r"""Every frame of ``frames`` through each serve function of ``runs``
+    (``fn(frames, carry) -> (pose, tran, contact, carry)``) from one carry,
+    the first run's. Returns, per run, its ``(pose, tran)`` over the frames
+    and, per frame, the gaps of its carried states from the first run's:
+    the largest per stack, and the mean over every state entry."""
+    import torch
+    dev = frames["j2dc"].device
+    outs = [([], []) for _ in runs]
+    gaps, means = [[] for _ in runs], [[] for _ in runs]
+    for t in range(len(frames["conf"])):
+        fr = _frame_slice(frames, t, dev)
+        res = [fn(fr, carry) for fn in runs]
+        ref = res[0][3]["states"]
+        for k, (pose, tran, _, c) in enumerate(res):
+            outs[k][0].append(pose.cpu())
+            outs[k][1].append(tran.cpu())
+            d = {n: torch.cat([(c["states"][n][i].double()
+                                - ref[n][i].double()).abs().flatten()
+                               for i in (0, 1)]) for n in ref}
+            gaps[k].append({n: float(v.max()) for n, v in d.items()})
+            means[k].append(float(torch.cat(list(d.values())).mean()))
+        carry = res[0][3]
+    return ([(torch.cat(p), torch.cat(tr)) for p, tr in outs], gaps,
+            means)
+
+
+def _hold_frame_by_frame(S, mode, prepped, consts, cfg, frames, carry):
+    r"""The kernel against its plain version frame by frame from one carry,
+    within ``STEP_BOUNDS[mode]``; and the controls, which must fall outside
+    them. Returns whether the kernel is within them."""
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.nn.rnn import dequantize_params
+
+    def plain_as(arith, params):
+        p = dict(prepped, mode=arith, params=params)
+        return lambda fr, c: S.serve_scan_plain(p, consts, cfg, fr, c)
+
+    runs = {"plain": plain_as(mode, prepped["params"]),
+            "kernel": lambda fr, c: S.serve_scan(prepped, consts, cfg, fr, c)}
+    if mode != "f32":
+        dense = tree_map(lambda t: t.float(), dequantize_params(
+            prepped["params"], torch.float32))
+        runs["control: plain with f32 arithmetic"] = plain_as("f32", dense)
+        if mode == "int8":
+            runs["control: plain with bf16 arithmetic, no quantization"] = \
+                plain_as("bf16", dense)
+    outs, gaps, means = _frame_by_frame(list(runs.values()), frames, carry)
+    bounds = STEP_BOUNDS[mode]
+    ok = True
+    for k, name in enumerate(runs):
+        if k == 0:
+            continue
+        per_max = torch.tensor([max(g.values()) for g in gaps[k]],
+                               dtype=torch.float64)
+        per_mean = torch.tensor(means[k], dtype=torch.float64)
+        mean_med = float(per_mean.median())
+        what = f"serve_scan {mode} mixed, frame by frame from one carry, " \
+               f"{name} vs plain"
+        within = _compare(what, outs[k], outs[0], bounds=bounds[:3])
+        within &= mean_med <= bounds[3]
+        past = [(t, [n for n, e in g.items() if e > STATE_MARK])
+                for t, g in enumerate(gaps[k]) if max(g.values())
+                > STATE_MARK]
+        print(f"[serve_scan] {what}: carried states, per-frame mean gap "
+              f"median {mean_med:.3e} (bound {bounds[3]:.0e}), p95 "
+              f"{float(torch.quantile(per_mean, 0.95)):.3e}; per-frame max "
+              f"gap median {float(per_max.median()):.3e}, p95 "
+              f"{float(torch.quantile(per_max, 0.95)):.3e}, max "
+              f"{float(per_max.max()):.3e}; {len(past)} frames past "
+              f"{STATE_MARK:.0e}: {past[:12]}"
+              + ("" if within else "  <-- OUTSIDE"), flush=True)
+        if name == "kernel":
+            ok &= within
+        else:
+            _require(not within, f"{what}: the control is within the bounds "
+                     "the kernel is held to, so they cannot tell a kernel "
+                     "that leaves out the mode's rounding from a right one")
+    return ok
+
+
+def _frame_slice(frames, t, dev):
+    import torch
+    return {k: v[t:t + 1].to(dev) if torch.is_tensor(v) else v[t:t + 1]
+            for k, v in frames.items()}
+
+
+def _to(tree, dev):
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    return tree_map(lambda x: x.to(dev) if torch.is_tensor(x) else x, tree)
+
+
+def _state_divergence(run_a, run_b, frames, carry):
+    r"""Two serve functions chained frame by frame from ``carry`` (one-frame
+    chunks give the same bits as one launch, as the chaining check shows).
+    ``run_*`` is ``(fn(frames, carry) -> (pose, tran, contact, carry),
+    device)``. Returns the per-frame gaps of the carried states, ``{(stack,
+    "h" or "c", layer): [T floats]}``, and both runs' pose and
+    translation."""
+    import torch
+    T = len(frames["conf"])
+    (fa, da), (fb, db) = run_a, run_b
+    ca, cb = _to(carry, da), _to(carry, db)
+    gaps, outs = {}, ([], [])
+    for t in range(T):
+        *oa, ca = fa(_frame_slice(frames, t, da), ca)
+        *ob, cb = fb(_frame_slice(frames, t, db), cb)
+        outs[0].append([x.cpu() for x in oa[:2]])
+        outs[1].append([x.cpu() for x in ob[:2]])
+        for n in ca["states"]:
+            for i, hc in enumerate("hc"):
+                d = (ca["states"][n][i].cpu().double()
+                     - cb["states"][n][i].cpu().double()).abs()
+                for l in range(d.shape[0]):
+                    gaps.setdefault((n, hc, l), []).append(float(d[l].max()))
+    runs = tuple(tuple(torch.cat(x) for x in zip(*o)) for o in outs)
+    return gaps, runs
+
+
+def _print_divergence(what, gaps):
+    r"""Per stack and for h and c: the largest gap, the first frame past
+    ``STATE_MARK``; then, for the stack that passes it first, the gaps of
+    each layer on the frames around that one."""
+    per = {}
+    for (n, hc, l), g in gaps.items():
+        m, first = per.get((n, hc), (0.0, None))
+        past = next((t for t, e in enumerate(g) if e > STATE_MARK), None)
+        if past is not None and (first is None or past < first):
+            first = past
+        per[(n, hc)] = (max(m, max(g)), first)
+    print(f"[serve_scan] {what}, carried states frame by frame (max; first "
+          f"frame past {STATE_MARK:.0e}): " + ", ".join(
+              f"{n}.{hc} {m:.2e}; {first}"
+              for (n, hc), (m, first) in per.items()), flush=True)
+    departed = [(first, n) for (n, _), (_, first) in per.items()
+                if first is not None]
+    if departed:
+        t0, n = min(departed)
+        lo, hi = max(0, t0 - 3), t0 + 3
+        print(f"[serve_scan] {what}: {n} around frame {t0}, per layer, "
+              f"frames {lo}..{hi - 1}: " + "; ".join(
+                  f"{hc}{l} " + " ".join(f"{e:.1e}" for e in g[lo:hi])
+                  for (m, hc, l), g in gaps.items() if m == n), flush=True)
+
+
+def _serve_divergence(S, mode, p, prepped, consts, cfg, frames, carry,
+                      model):
+    r"""Where the carried states of kernel and plain version part, chained
+    over the chunk: per stack, the largest gap and the first frame past
+    ``STATE_MARK``; beside it the same for the plain version on the card
+    against the plain version on the CPU, which differ only in the order of
+    their float32 sums (the int8 mode's on the first ``INT8_CONTROL_FRAMES``
+    frames: its exact int32 products are slow on the CPU)."""
+    import torch
+    from robustcap_tpu_torch.ops.geometry_tail import tail_constants
+    from robustcap_tpu_torch.smpl import ParametricModel
+    dev = frames["j2dc"].device
+    kernel = (lambda fr, c: S.serve_scan(prepped, consts, cfg, fr, c), dev)
+    plain = (lambda fr, c: S.serve_scan_plain(prepped, consts, cfg, fr, c),
+             dev)
+    gaps, _ = _state_divergence(kernel, plain, frames, carry)
+    _print_divergence(f"{mode} mixed, kernel vs plain", gaps)
+    T = INT8_CONTROL_FRAMES if mode == "int8" else len(frames["conf"])
+    frames = {k: v[:T] for k, v in frames.items()}
+    cpu = torch.device("cpu")
+    prepped_cpu = S.prepare_serve_params(_to(p, cpu),
+                                         int8_gates=mode == "int8")
+    consts_cpu = tail_constants(ParametricModel(data=model.data,
+                                                device=cpu))
+    plain_cpu = (lambda fr, c: S.serve_scan_plain(prepped_cpu, consts_cpu,
+                                                  cfg, fr, c), cpu)
+    t0 = time.perf_counter()
+    gaps, runs = _state_divergence(plain, plain_cpu, frames, carry)
+    what = (f"{mode} mixed, first {T} frames, control: plain on the card vs "
+            f"plain on the CPU ({time.perf_counter() - t0:.1f} s)")
+    _print_divergence(what, gaps)
+    _compare(what, *runs, (8, 16, 32) if T < 64 else (64, 128, 256),
+             bounds=None)
 
 
 def check_serve(params, model, dev):
@@ -561,73 +861,87 @@ def check_serve(params, model, dev):
     from robustcap_tpu_torch.ops import serve_scan as S
     from robustcap_tpu_torch.ops.geometry_tail import tail_constants
 
-    prepped = S.prepare_serve_params(params)
     consts = tail_constants(model)
-    T, ok, row = 256, True, None
-    for label, cfg, seed in (("mixed", SigMPConfig(), 6),
-                             ("live", SigMPConfig.live_mode(), 7)):
-        conf = _mixed(T, seed)
-        conf[:4] = 0.2   # the IMU updater fires on the first confident frame
-        frames = sig_mp._sequence_frames(
-            *_stream_inputs(seed, conf), np.zeros(3, np.float32), True, None,
-            dev)
-        carry = sig_mp.prescan_first_frame(params, model,
-                                           sig_mp.init_carry(params),
-                                           sig_mp._frame_at(frames, 0))
-        got = S.serve_scan(prepped, consts, cfg, frames, carry)
-        want = S.serve_scan_plain(prepped, consts, cfg, frames, carry)
-        first = {k: v[:100] for k, v in frames.items()}
-        rest = {k: v[100:] for k, v in frames.items()}
-        a = S.serve_scan(prepped, consts, cfg, first, carry)
-        b = S.serve_scan(prepped, consts, cfg, rest, a[3])
-        torch.cuda.synchronize()
-        ok &= _compare(f"serve_scan {label} T={T}, kernel vs plain (card)",
-                       (got[0].cpu(), got[1].cpu()),
-                       (want[0].cpu(), want[1].cpu()), (64, 128, 256))
-        err = max(_max_err(x, y) for x, y in zip(got[:3], want[:3]))
-        st_err = max(_max_err(got[3]["states"][n][i], want[3]["states"][n][i])
-                     for n in want[3]["states"] for i in (0, 1))
-        chain = max(_max_err(torch.cat([x, y]), z)
-                    for x, y, z in zip(a[:3], b[:3], got[:3]))
-        chain = max([chain] + [
-            _max_err(b[3]["states"][n][i], got[3]["states"][n][i])
-            for n in got[3]["states"] for i in (0, 1)])
-        _require(chain == 0.0,
-                 f"serve_scan {label}: 100+156 chained vs 256 differ by "
-                 f"{chain:.3e} (the per-frame arithmetic does not depend on "
-                 "where a chunk starts, so they must be equal)")
-        _require(all(bool(torch.isfinite(x).all()) for x in got[:3]),
-                 f"serve_scan {label}: non-finite output")
-        flags = {k: (int(got[3][k]), int(want[3][k]))
-                 for k in ("floor_cnt", "vision_count", "first_reach")}
-        ms = _time_ms(lambda: S.serve_scan(prepped, consts, cfg, frames,
-                                           carry), reps=3, warmup=1)
-        plain_ms = _time_graph_ms(
-            lambda: S.serve_scan_plain(prepped, consts, cfg, frames, carry),
-            reps=1)
-        # a fresh carry: the IMU updater fires on the first confident frame
-        n_iu = int((conf >= np.float32(cfg.conf_range[1])).any())
-        n_bytes, n_flops = _serve_work(prepped, frames, n_iu)
-        bound, by = _bound_ms(n_bytes, n_flops)
-        # the bank is five times the L2: streamed once per frame, with
-        # rnn7/rnn8 twice
-        stream_ms = T * 4 * sum(
-            (s["H"] * s["in"] + 16 * s["H"] * s["H"] + s["out"] * s["H"])
-            * (2 if n in ("rnn7", "rnn8") else 1)
-            for n, s in prepped["stacks"].items()) / PEAK_BYTES * 1e3
-        print(f"[serve_scan] {label} T={T}: kernel vs plain pose/tran/"
-              f"contact max {err:.3e}, states max {st_err:.3e}, carry "
-              f"flags (kernel, plain) {flags}; 100+156 chained vs 256 "
-              f"{chain:.3e} (bound 0); kernel {ms:.3f} ms/launch "
-              f"({ms / T * 1e3:.2f} us/frame), plain {plain_ms:.3f} ms "
-              f"device time in a CUDA graph; bound {bound:.4f} ms ({by}, "
-              f"{n_bytes} bytes, {n_flops} operations); weights streamed "
-              f"once per frame would take {stream_ms:.3f} ms", flush=True)
-        if row is None:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=bound, bound_by=by)
+    T, ok, rows = 256, True, {}
+    for mode, p, mode_cfg in _serve_modes(params):
+        prepped = S.prepare_serve_params(p, int8_gates=mode_cfg.int8_compute)
+        _require(prepped["mode"] == mode, f"prepared {prepped['mode']}, "
+                 f"expected {mode}")
+        scan_p = sig_mp.prepare_scan_params(p, mode_cfg.int8_compute)
+        for label, cfg, seed in (
+                ("mixed", mode_cfg, 6),
+                ("live", dataclasses.replace(
+                    SigMPConfig.live_mode(),
+                    int8_compute=mode_cfg.int8_compute), 7)):
+            conf = _mixed(T, seed)
+            conf[:4] = 0.2   # the IMU updater fires on the first confident
+            frames = sig_mp._sequence_frames(
+                *_stream_inputs(seed, conf), np.zeros(3, np.float32), True,
+                None, dev)
+            carry = sig_mp.prescan_first_frame(
+                scan_p, model, sig_mp.init_carry(scan_p),
+                sig_mp._frame_at(frames, 0), cfg.int8_compute)
+            got = S.serve_scan(prepped, consts, cfg, frames, carry)
+            want = S.serve_scan_plain(prepped, consts, cfg, frames, carry)
+            first = {k: v[:100] for k, v in frames.items()}
+            rest = {k: v[100:] for k, v in frames.items()}
+            a = S.serve_scan(prepped, consts, cfg, first, carry)
+            b = S.serve_scan(prepped, consts, cfg, rest, a[3])
+            torch.cuda.synchronize()
+            name = f"serve_scan {mode} {label} T={T}"
+            ok &= _compare(f"{name}, kernel vs plain (card)",
+                           (got[0].cpu(), got[1].cpu()),
+                           (want[0].cpu(), want[1].cpu()), (64, 128, 256),
+                           (POSE_MEDIAN_BOUND, POSE_P95_BOUND, TRAN_BOUND)
+                           if mode == "f32" else None)
+            err = max(_max_err(x, y) for x, y in zip(got[:3], want[:3]))
+            st_err = max(_max_err(got[3]["states"][n][i],
+                                  want[3]["states"][n][i])
+                         for n in want[3]["states"] for i in (0, 1))
+            chain = max(_max_err(torch.cat([x, y]), z)
+                        for x, y, z in zip(a[:3], b[:3], got[:3]))
+            chain = max([chain] + [
+                _max_err(b[3]["states"][n][i], got[3]["states"][n][i])
+                for n in got[3]["states"] for i in (0, 1)])
+            _require(chain == 0.0,
+                     f"{name}: 100+156 chained vs 256 differ by {chain:.3e} "
+                     "(the per-frame arithmetic does not depend on where a "
+                     "chunk starts, so they must be equal)")
+            _require(all(bool(torch.isfinite(x).all()) for x in got[:3]),
+                     f"{name}: non-finite output")
+            flags = {k: (int(got[3][k]), int(want[3][k]))
+                     for k in ("floor_cnt", "vision_count", "first_reach")}
+            ms = _time_ms(lambda: S.serve_scan(prepped, consts, cfg, frames,
+                                               carry), reps=3, warmup=1)
+            plain_ms = _time_graph_ms(
+                lambda: S.serve_scan_plain(prepped, consts, cfg, frames,
+                                           carry), reps=1)
+            # a fresh carry: the IMU updater fires on the first confident
+            # frame
+            n_iu = int((conf >= np.float32(cfg.conf_range[1])).any())
+            n_bytes, *n_ops = _serve_work(prepped, frames, n_iu)
+            bound, by = _bound_ms(n_bytes, *n_ops)
+            stream_ms = _stream_ms(prepped, T)
+            print(f"[serve_scan] {mode} {label} T={T}: kernel vs plain "
+                  f"pose/tran/contact max {err:.3e}, states max "
+                  f"{st_err:.3e}, carry flags (kernel, plain) {flags}; "
+                  f"100+156 chained vs 256 {chain:.3e} (bound 0); kernel "
+                  f"{ms:.3f} ms/launch ({ms / T * 1e3:.2f} us/frame), plain "
+                  f"{plain_ms:.3f} ms device time in a CUDA graph; bound "
+                  f"{bound:.4f} ms ({by}, {n_bytes} bytes, operations f32 "
+                  f"{n_ops[0]}, bf16 {n_ops[1]}, int8 {n_ops[2]}); weights "
+                  f"streamed once per frame would take {stream_ms:.3f} ms",
+                  flush=True)
+            if label == "mixed":
+                rows[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  library_ms=None, bound_ms=bound,
+                                  bound_by=by)
+                ok &= _hold_frame_by_frame(S, mode, prepped, consts, cfg,
+                                           frames, carry)
+                _serve_divergence(S, mode, p, prepped, consts, cfg, frames,
+                                  carry, model)
     _require(ok, "serve kernel outside its bounds (see the lines above)")
-    return row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -685,11 +999,15 @@ def main():
              source="robustcap_tpu_torch/csrc/geometry_tail.cu",
              replaces="robustcap_tpu/ops/pallas_tail.py:468",
              launches=launches["geometry_tail"], **tail),
-        dict(name="serve_scan", route="cuda",
+    ]
+    kernels += [
+        dict(name="serve_scan" if mode == "f32" else f"serve_scan_{mode}",
+             mode=mode, route="cuda",
              source="robustcap_tpu_torch/csrc/serve_scan.cu",
              replaces="robustcap_tpu/ops/pallas_serve.py:930",
-             launches=launches["serve_scan"], **serve),
-    ]
+             launches=launches["serve_scan" if mode == "f32"
+                               else f"serve_scan_{mode}"], **row)
+        for mode, row in serve.items()]
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,25 @@ __all__ = ["params_from_numpy", "params_from_torch_state_dict",
            "load_torch_checkpoint"]
 
 
+def _leaf_from_numpy(x, dev):
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        # through float32, which holds every bf16 value exactly
+        return torch.tensor(a.astype(np.float32), device=dev).to(
+            torch.bfloat16)
+    if a.dtype == np.int8:
+        return torch.tensor(a, device=dev)
+    return torch.tensor(a.astype(np.float32), device=dev)
+
+
 def params_from_numpy(tree, device):
     r"""The JAX parameter pytree, already converted to numpy by the caller
-    (``jax.tree.map(np.array, params)``), as float32 tensors on
-    ``device``."""
+    (``jax.tree.map(np.array, params)``), as tensors on ``device``. Each
+    leaf keeps its kind: bfloat16 arrays become ``torch.bfloat16``, the
+    int8 payload of a quantized record stays ``torch.int8``, and every other
+    leaf becomes float32."""
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.tensor(np.array(x, dtype=np.float32),
-                                           device=dev), tree)
+    return tree_map(lambda x: _leaf_from_numpy(x, dev), tree)
 
 
 def params_from_torch_state_dict(state_dict, device="cuda"):

@@ -7,21 +7,35 @@
 // commit; the final tail; the one-shot IMU-updater rewrite of rnn2's (h, c)
 // through init_net; and the carry. Semantics of
 // models/sig_mp.py::make_step(include_first_frame_step=False,
-// cond_updater=False) frame for frame, dense f32 weights.
+// cond_updater=False) frame for frame.
+//
+// Three weight modes, one template on the mode (ops/serve_scan.py's
+// prepare_serve_params builds their operands): float32 rows; bf16 rows, each
+// product's activation side rounded to bf16 as it is copied into shared
+// memory and everything else in float32; and int8 gate rows with per-row
+// scales (cfg.int8_compute), whose x and h each block quantizes per row from
+// its own shared copy (the |max| reduced in the block, so no extra grid
+// barrier), summed in int32 with __dp4a and rescaled, with linear1/linear2 in
+// bf16 and bf16 rounding where the JAX int8 cell rounds (lstm_cell.cuh).
 //
 // Replaces the TPU kernel robustcap_tpu/ops/pallas_serve.py::_make_kernel
 // (reached through serve_scan, operands from prepare_serve_params).
 //
 // What bounds it on an H100: a frame is a chain of ~18 dependent steps. The
-// f32 bank is ~61M parameters (~243 MB), and rnn7/rnn8 run twice per frame,
-// so a frame reads ~277 MB of weights: at 3.35 TB/s that is ~83 us. The
-// arithmetic (~139 MFLOP per frame) is far below the f32 rate. The bank is
-// five times the 50 MB L2, so it streams from HBM every frame.
+// bank is ~61M parameters, and rnn7/rnn8 run twice per frame, so a frame
+// reads ~277 MB of weights in f32, ~139 MB in bf16 and ~71 MB with int8 gates:
+// at 3.35 TB/s that is ~83, ~41 and ~21 us. The arithmetic (~139 M
+// operations per frame) is far below the card's rates. Even the int8 bank
+// (~60 MB) exceeds the 50 MB L2, so it streams from HBM every frame. As
+// written, the kernel is far from those floors and its time follows the
+// number of rows and barriers more than their bytes: a warp reads one row
+// at a time and reduces it before the next (PERF.md).
 //
 // Memory plan: nothing is resident. Weights stay in the torch layout ([4H,
 // in] rows) in global memory and are read row by row through the
 // non-coherent cache. Each phase copies the vectors it multiplies (at most
-// 4096 floats, 16 KB) into dynamic shared memory; the tail's scratch is
+// 4096 floats, 16 KB, and in int8 mode their 4 KB quantized copy) into
+// dynamic shared memory; the tail's scratch is
 // ~4 KB of static shared memory in block 0. Hidden states live in global
 // memory: h double-buffered per frame (frame t reads slot t%2 and writes
 // slot (t+1)%2, and a unit that does not commit copies its old h across),
@@ -81,14 +95,45 @@ constexpr int kSynJ3 = 198;
 // heads' [in2, j3dr] at kIn7
 constexpr int kIn7 = 240;
 
+// The weight types of a mode: Dense for linear1/linear2, Gate for the LSTM
+// rows; kRound: activations rounded to bf16 before every product.
+struct ModeF32 {
+  using Dense = float;
+  using Gate = float;
+  static constexpr bool kRound = false;
+  static constexpr bool kInt8 = false;
+};
+struct ModeBf16 {
+  using Dense = __nv_bfloat16;
+  using Gate = __nv_bfloat16;
+  static constexpr bool kRound = true;
+  static constexpr bool kInt8 = false;
+};
+struct ModeInt8 {
+  using Dense = __nv_bfloat16;
+  using Gate = int8_t;
+  static constexpr bool kRound = true;
+  static constexpr bool kInt8 = true;
+};
+
+// An activation as the products of mode M read it
+template <class M>
+__device__ __forceinline__ float act(float x) {
+  if constexpr (M::kRound) return bf16r(x);
+  return x;
+}
+
+template <class M>
 struct Stack {
-  const float* w1;      // [H, in]
-  const float* b1;      // [H]
-  const float* wih[2];  // [4H, H] per layer
-  const float* whh[2];  // [4H, H]
-  const float* bias[2];  // [4H] b_ih + b_hh
-  const float* w2;      // [out, H]
-  const float* b2;      // [out]
+  const typename M::Dense* w1;     // [H, in]
+  const float* b1;                 // [H]
+  const typename M::Gate* wih[2];  // [4H, H] per layer
+  const typename M::Gate* whh[2];  // [4H, H]
+  const float* bias[2];            // [4H] b_ih + b_hh
+  const float* sih[2];             // [4H] row scales (int8 mode), or null
+  const float* shh[2];
+  const typename M::Dense* w2;     // [out, H]
+  const float* b2;                 // [out]
   float* hs;   // state h [2 layers][2 slots][H]
   float* cs;   // state c [2 layers][H]
   float* y1;   // linear1 output [H]
@@ -97,8 +142,9 @@ struct Stack {
   int in, H, n_out;
 };
 
+template <class M>
 struct Args {
-  Stack st[kStacks];
+  Stack<M> st[kStacks];
   // per-frame inputs
   const float* in2;    // [T, 72] IMU in the root frame (rnn2's input)
   const float* raw72;  // [T, 72] IMU in the camera frame
@@ -155,49 +201,101 @@ struct Job {
 };
 
 __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
+__device__ __forceinline__ int align16(int n) { return (n + 15) & ~15; }
 
-// linear1 -> ReLU of every job, rows of all jobs laid end to end
-__device__ void phase_lin1(const Args& a, const Job* jobs, int nj, int gw,
+// linear1 (int8 mode: rounded to bf16 and the bias added in bf16) -> ReLU
+// of every job, rows of all jobs laid end to end
+template <class M>
+__device__ void phase_lin1(const Args<M>& a, const Job* jobs, int nj, int gw,
                            int nw, int lane) {
   int n[3], total = 0;
   for (int k = 0; k < nj; ++k) total += (n[k] = a.st[jobs[k].s].H);
   for (int i = gw; i < total; i += nw) {
     int k = 0, r = i;
     while (r >= n[k]) r -= n[k++];
-    const Stack& s = a.st[jobs[k].s];
+    const Stack<M>& s = a.st[jobs[k].s];
     const float v = warp_dot(s.w1 + static_cast<size_t>(r) * s.in,
                              jobs[k].x, s.in, lane);
-    if (lane == 0) s.y1[r] = fmaxf(v + s.b1[r], 0.f);
+    if (lane != 0) continue;
+    if constexpr (M::kInt8)
+      s.y1[r] = fmaxf(bf16r(bf16r(v) + bf16r(s.b1[r])), 0.f);
+    else
+      s.y1[r] = fmaxf(v + s.b1[r], 0.f);
   }
 }
 
-// LSTM layer l of every job: [x ; h_prev] into shared memory, then one warp
+// max |v[i]| over the block, every thread gets it
+__device__ float block_absmax(const float* v, int n, float* red) {
+  float m = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) m = fmaxf(m, fabsf(v[i]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = red[0];
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();  // red is reused by the next call
+  return m;
+}
+
+// nn.rnn.quantize_activation of v [n] into q; returns the scale
+__device__ float quantize_row(const float* v, int n, int8_t* q, float* red) {
+  const float scale = fmaxf(block_absmax(v, n, red), 1e-12f) / 127.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    q[i] = static_cast<int8_t>(
+        fminf(fmaxf(rintf(v[i] / scale), -127.f), 127.f));
+  return scale;
+}
+
+// LSTM layer l of every job: [x ; h_prev] into shared memory (as the mode's
+// products read them; int8 mode also quantizes both per row), then one warp
 // per hidden unit
-__device__ void phase_layer(const Args& a, int l, const Job* jobs, int nj,
+template <class M>
+__device__ void phase_layer(const Args<M>& a, int l, const Job* jobs, int nj,
                             float* sv, int cur, int nxt, int gw, int nw,
                             int lane) {
+  __shared__ float red[kWarps];
+  __shared__ float scales[3][2];
   float* xs[3];
+  int8_t* qs[3];
   int n[3], total = 0, off = 0;
   for (int k = 0; k < nj; ++k) {
-    const Stack& s = a.st[jobs[k].s];
+    const Stack<M>& s = a.st[jobs[k].s];
     const int H = s.H;
     const float* x = l == 0 ? s.y1 : s.hn;
     const float* h = s.hs + static_cast<size_t>(l * 2 + cur) * H;
     xs[k] = sv + off;
     for (int i = threadIdx.x; i < H; i += blockDim.x) {
-      xs[k][i] = x[i];
-      xs[k][align4(H) + i] = h[i];
+      xs[k][i] = act<M>(x[i]);
+      xs[k][align4(H) + i] = act<M>(h[i]);
     }
     off += 2 * align4(H);
     total += (n[k] = H);
   }
   __syncthreads();
+  if constexpr (M::kInt8) {
+    int8_t* q = reinterpret_cast<int8_t*>(sv + off);
+    for (int k = 0; k < nj; ++k) {
+      const int H = n[k];
+      qs[k] = q;
+      const float sx = quantize_row(xs[k], H, q, red);
+      const float sh = quantize_row(xs[k] + align4(H), H, q + align16(H),
+                                    red);
+      if (threadIdx.x == 0) {
+        scales[k][0] = sx;
+        scales[k][1] = sh;
+      }
+      q += 2 * align16(H);
+    }
+    __syncthreads();
+  }
   for (int i = gw; i < total; i += nw) {
     int k = 0, j = i;
     while (j >= n[k]) j -= n[k++];
-    const Stack& s = a.st[jobs[k].s];
+    const Stack<M>& s = a.st[jobs[k].s];
     const int H = s.H;
-    LstmLayer L;
+    LstmLayerT<typename M::Gate> L;
     L.wih = s.wih[l];
     L.whh = s.whh[l];
     L.bih = s.bias[l];
@@ -208,23 +306,34 @@ __device__ void phase_layer(const Args& a, int l, const Job* jobs, int nj,
     L.c_out = s.cs + l * H;
     L.h_out = s.hn + l * H;
     L.h_state = s.hs + static_cast<size_t>(l * 2 + nxt) * H;
+    L.h_old = s.hs + static_cast<size_t>(l * 2 + cur) * H;
     L.H = H;
     L.commit = jobs[k].commit;
     L.mask = jobs[k].mask;
+    if constexpr (M::kInt8) {
+      L.sih = s.sih[l];
+      L.shh = s.shh[l];
+      L.xq = qs[k];
+      L.hq = qs[k] + align16(H);
+      L.sx = scales[k][0];
+      L.sh = scales[k][1];
+    }
     lstm_unit(L, j, lane);
   }
 }
 
-// linear2 of every job on its top-layer h
-__device__ void phase_out(const Args& a, const Job* jobs, int nj, float* sv,
+// linear2 of every job on its top-layer h (int8 mode: the bias added in
+// bf16)
+template <class M>
+__device__ void phase_out(const Args<M>& a, const Job* jobs, int nj, float* sv,
                           int gw, int nw, int lane) {
   float* xs[3];
   int n[3], total = 0, off = 0;
   for (int k = 0; k < nj; ++k) {
-    const Stack& s = a.st[jobs[k].s];
+    const Stack<M>& s = a.st[jobs[k].s];
     xs[k] = sv + off;
     for (int i = threadIdx.x; i < s.H; i += blockDim.x)
-      xs[k][i] = s.hn[s.H + i];
+      xs[k][i] = act<M>(s.hn[s.H + i]);
     off += align4(s.H);
     total += (n[k] = s.n_out);
   }
@@ -232,16 +341,21 @@ __device__ void phase_out(const Args& a, const Job* jobs, int nj, float* sv,
   for (int i = gw; i < total; i += nw) {
     int k = 0, r = i;
     while (r >= n[k]) r -= n[k++];
-    const Stack& s = a.st[jobs[k].s];
+    const Stack<M>& s = a.st[jobs[k].s];
     const float v = warp_dot(s.w2 + static_cast<size_t>(r) * s.H, xs[k],
                              s.H, lane);
-    if (lane == 0) s.out[r] = v + s.b2[r];
+    if (lane != 0) continue;
+    if constexpr (M::kInt8)
+      s.out[r] = bf16r(bf16r(v) + bf16r(s.b2[r]));
+    else
+      s.out[r] = v + s.b2[r];
   }
 }
 
 // The four dependent products of a group of stacks whose linear1 inputs are
 // already in shared memory.
-__device__ void run_group(const Args& a, const Job* jobs, int nj, float* sv,
+template <class M>
+__device__ void run_group(const Args<M>& a, const Job* jobs, int nj, float* sv,
                           int cur, int nxt, cg::grid_group& grid, int gw,
                           int nw, int lane) {
   phase_lin1(a, jobs, nj, gw, nw, lane);
@@ -256,7 +370,8 @@ __device__ void run_group(const Args& a, const Job* jobs, int nj, float* sv,
 
 // A stack that is skipped this frame carries its h into the next slot (c
 // stays where it is).
-__device__ void keep_state(const Stack& s, int cur, int nxt, int gw, int nw,
+template <class M>
+__device__ void keep_state(const Stack<M>& s, int cur, int nxt, int gw, int nw,
                            int lane) {
   if (lane != 0) return;
   for (int j = gw; j < s.H; j += nw)
@@ -266,8 +381,10 @@ __device__ void keep_state(const Stack& s, int cur, int nxt, int gw, int nw,
 }
 
 // The gated joints of frame t into dst [69]: out4_eff rotated by Rcr,
-// lerped with the inertial joints by confidence.
-__device__ void load_j3dr(const Args& a, int t, float* dst) {
+// lerped with the inertial joints by confidence; as a product of mode M
+// reads them with ``round``, else in float32 (init_net's input).
+template <class M>
+__device__ void load_j3dr(const Args<M>& a, int t, float* dst, bool round) {
   const bool ff = a.ff[t] != 0;
   const float c = a.c[t];
   const float k = a.k_lerp[t];
@@ -278,12 +395,15 @@ __device__ void load_j3dr(const Args& a, int t, float* dst) {
     const int n = i / 3, r = i % 3;
     const float v = o4[3 * n] * R[r] + o4[3 * n + 1] * R[3 + r] +
                     o4[3 * n + 2] * R[6 + r];
-    dst[i] = c >= a.hi ? v : (c > a.lo ? o2[i] * (1.f - k) + v * k : o2[i]);
+    const float j =
+        c >= a.hi ? v : (c > a.lo ? o2[i] * (1.f - k) + v * k : o2[i]);
+    dst[i] = round ? act<M>(j) : j;
   }
 }
 
 // Tail arguments of frame t; w = 0 speculative, 1 final.
-__device__ TailArgs tail_args(const Args& a, int t, int w, const float* pc) {
+template <class M>
+__device__ TailArgs tail_args(const Args<M>& a, int t, int w, const float* pc) {
   TailArgs ta;
   ta.out7 = a.st[kR7].out;
   ta.out8 = a.st[kR8].out;
@@ -337,7 +457,8 @@ __device__ TailArgs tail_args(const Args& a, int t, int w, const float* pc) {
 // Block 0, after the speculative tail: the refeed condition and the
 // synthetic keypoints j_lm / j_lm.z (bbox-normalised for rnn4, raw for
 // rnn6) and joint[1:] - joint[0].
-__device__ void synthetic(const Args& a, int t, float* s_scale) {
+template <class M>
+__device__ void synthetic(const Args<M>& a, int t, float* s_scale) {
   const float* jl = a.tail_f[0] + kOffJlm;
   const float* joint = a.tail_f[0] + kOffJoint;
   float* syn = a.syn;
@@ -376,7 +497,8 @@ __device__ void synthetic(const Args& a, int t, float* s_scale) {
 }
 
 // Block 0, after the final tail: per-frame outputs and the carry.
-__device__ void commit_frame(const Args& a, int t, bool conf_full) {
+template <class M>
+__device__ void commit_frame(const Args<M>& a, int t, bool conf_full) {
   const float* f = a.tail_f[1];
   const int tid = threadIdx.x;
   for (int i = tid; i < 216; i += blockDim.x)
@@ -402,10 +524,11 @@ __device__ void commit_frame(const Args& a, int t, bool conf_full) {
 // One init_net layer: rows [n] of w [n, m] on x (shared memory) -> out,
 // ReLU on all but the last layer. The last layer writes rnn2's state for
 // the next frame: h of layer l at rows [l H, (l+1) H), c at [(2+l) H, ...).
-__device__ void init_layer(const Args& a, int li, const float* x, int m,
+template <class M>
+__device__ void init_layer(const Args<M>& a, int li, const float* x, int m,
                            int nxt, int gw, int nw, int lane) {
   const int n = a.init_n[li];
-  const Stack& s2 = a.st[kR2];
+  const Stack<M>& s2 = a.st[kR2];
   const int H = s2.H;
   for (int r = gw; r < n; r += nw) {
     const float v = warp_dot(a.iw[li] + static_cast<size_t>(r) * m, x, m,
@@ -424,8 +547,9 @@ __device__ void init_layer(const Args& a, int li, const float* x, int m,
   }
 }
 
+template <class M>
 __global__ void __launch_bounds__(kThreads)
-    serve_scan_kernel(const __grid_constant__ Args a) {
+    serve_scan_kernel(const __grid_constant__ Args<M> a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float sv[];
   __shared__ TailShared ts;
@@ -450,14 +574,15 @@ __global__ void __launch_bounds__(kThreads)
     const float* in2 = a.in2 + 72 * t;
 
     // rnn2 on the IMU in the root frame
-    for (int i = tid; i < 72; i += kThreads) sv[i] = in2[i];
+    for (int i = tid; i < 72; i += kThreads) sv[i] = act<M>(in2[i]);
     __syncthreads();
     const Job j2[1] = {{kR2, sv, kCommitAlways, true}};
     run_group(a, j2, 1, sv, cur, nxt, grid, gw, nw, lane);
 
     // rnn3 and the speculative heads on [in2, out2]
-    for (int i = tid; i < 72; i += kThreads) sv[i] = in2[i];
-    for (int i = tid; i < 69; i += kThreads) sv[72 + i] = a.st[kR2].out[i];
+    for (int i = tid; i < 72; i += kThreads) sv[i] = act<M>(in2[i]);
+    for (int i = tid; i < 69; i += kThreads)
+      sv[72 + i] = act<M>(a.st[kR2].out[i]);
     __syncthreads();
     const Job g1[3] = {{kR3, sv, kCommitAlways, true},
                        {kR7, sv, kCommitNever, false},
@@ -481,8 +606,9 @@ __global__ void __launch_bounds__(kThreads)
     // rnn4 on [raw72, keypoints], synthetic when refeeding
     if (need46) {
       const float* kp = vu ? syn + kSynNorm : a.j2n + 99 * t;
-      for (int i = tid; i < 72; i += kThreads) sv[i] = a.raw72[72 * t + i];
-      for (int i = tid; i < 99; i += kThreads) sv[72 + i] = kp[i];
+      for (int i = tid; i < 72; i += kThreads)
+        sv[i] = act<M>(a.raw72[72 * t + i]);
+      for (int i = tid; i < 99; i += kThreads) sv[72 + i] = act<M>(kp[i]);
       __syncthreads();
       const Job j4[1] = {{kR4, sv, kCommitMasked, m4}};
       run_group(a, j4, 1, sv, cur, nxt, grid, gw, nw, lane);
@@ -497,13 +623,13 @@ __global__ void __launch_bounds__(kThreads)
       const float* kp = vu ? syn + kSynRaw : a.j2r + 99 * t;
       const float* o4 = ff ? a.out4_first : a.st[kR4].out;
       for (int i = tid; i < 72; i += kThreads) {
-        sv[i] = a.raw72[72 * t + i];
-        sv[kIn7 + i] = in2[i];
+        sv[i] = act<M>(a.raw72[72 * t + i]);
+        sv[kIn7 + i] = act<M>(in2[i]);
       }
-      for (int i = tid; i < 99; i += kThreads) sv[72 + i] = kp[i];
+      for (int i = tid; i < 99; i += kThreads) sv[72 + i] = act<M>(kp[i]);
       for (int i = tid; i < 69; i += kThreads)
-        sv[171 + i] = vu ? syn[kSynJ3 + i] : o4[i];
-      load_j3dr(a, t, sv + kIn7 + 72);
+        sv[171 + i] = act<M>(vu ? syn[kSynJ3 + i] : o4[i]);
+      load_j3dr(a, t, sv + kIn7 + 72, true);
       __syncthreads();
       const Job g2[3] = {{kR7, sv + kIn7, kCommitAlways, true},
                          {kR8, sv + kIn7, kCommitAlways, true},
@@ -523,7 +649,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
     }
     if (iu) {
-      load_j3dr(a, t, sv);
+      load_j3dr(a, t, sv, false);
       __syncthreads();
       init_layer(a, 0, sv, a.st[kR2].n_out, nxt, gw, nw, lane);
       grid.sync();
@@ -540,35 +666,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kPtrsPerStack = 15;
+constexpr int kPtrsPerStack = 19;
 constexpr int kNumPtrs = kStacks * kPtrsPerStack + 40;
-constexpr int kNumInts = kStacks * 3 + 9;
+constexpr int kNumInts = 1 + kStacks * 3 + 9;
 constexpr int kNumFloats = 6;
 
-}  // namespace
-
-extern "C" int serve_scan_launch(const int64_t* ptrs, int n_ptrs,
-                                 const int* ints, int n_ints,
-                                 const float* flts, int n_flts,
-                                 void* stream) {
-  if (n_ptrs != kNumPtrs || n_ints != kNumInts || n_flts != kNumFloats)
-    return cudaErrorInvalidValue;
-  Args a;
-  int p = 0, q = 0;
+template <class M>
+int launch(const int64_t* ptrs, const int* ints, const float* flts,
+           void* stream) {
+  Args<M> a;
+  int p = 0, q = 1;  // ints[0] is the mode
   auto F = [&]() { return reinterpret_cast<float*>(ptrs[p++]); };
   auto I = [&]() { return reinterpret_cast<int*>(ptrs[p++]); };
+  auto D = [&]() {
+    return reinterpret_cast<const typename M::Dense*>(ptrs[p++]);
+  };
+  auto G = [&]() {
+    return reinterpret_cast<const typename M::Gate*>(ptrs[p++]);
+  };
   int smem_floats = 400;  // linear1 inputs: 240 + 141, aligned
   int sum_h[2] = {0, 0};
   for (int k = 0; k < kStacks; ++k) {
-    Stack& s = a.st[k];
-    s.w1 = F();
+    Stack<M>& s = a.st[k];
+    s.w1 = D();
     s.b1 = F();
     for (int l = 0; l < 2; ++l) {
-      s.wih[l] = F();
-      s.whh[l] = F();
+      s.wih[l] = G();
+      s.whh[l] = G();
       s.bias[l] = F();
+      s.sih[l] = F();
+      s.shh[l] = F();
     }
-    s.w2 = F();
+    s.w2 = D();
     s.b2 = F();
     s.hs = F();
     s.cs = F();
@@ -578,7 +707,9 @@ extern "C" int serve_scan_launch(const int64_t* ptrs, int n_ptrs,
     s.in = ints[q++];
     s.H = ints[q++];
     s.n_out = ints[q++];
-    const int h2 = 2 * ((s.H + 3) & ~3);
+    // [x ; h] as floats, and in int8 mode their quantized copy
+    const int h2 = 2 * ((s.H + 3) & ~3) + (M::kInt8 ? ((s.H + 15) & ~15) / 2
+                                                    : 0);
     if (k == kR3 || k == kR7 || k == kR8) sum_h[0] += h2;
     if (k == kR6 || k == kR7 || k == kR8) sum_h[1] += h2;
     if (h2 > smem_floats) smem_floats = h2;
@@ -653,19 +784,40 @@ extern "C" int serve_scan_launch(const int64_t* ptrs, int n_ptrs,
                                     dev)) != cudaSuccess)
     return err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(serve_scan_kernel,
+    err = cudaFuncSetAttribute(serve_scan_kernel<M>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, serve_scan_kernel, kThreads, smem)) != cudaSuccess)
+           &per_sm, serve_scan_kernel<M>, kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   void* kargs[] = {&a};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(serve_scan_kernel), dim3(sms), dim3(kThreads),
-      kargs, smem, static_cast<cudaStream_t>(stream));
+      reinterpret_cast<void*>(serve_scan_kernel<M>), dim3(sms),
+      dim3(kThreads), kargs, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// ints[0] picks the weight mode: 0 float32, 1 bf16, 2 int8 gates
+extern "C" int serve_scan_launch(const int64_t* ptrs, int n_ptrs,
+                                 const int* ints, int n_ints,
+                                 const float* flts, int n_flts,
+                                 void* stream) {
+  if (n_ptrs != kNumPtrs || n_ints != kNumInts || n_flts != kNumFloats)
+    return cudaErrorInvalidValue;
+  switch (ints[0]) {
+    case 0:
+      return launch<ModeF32>(ptrs, ints, flts, stream);
+    case 1:
+      return launch<ModeBf16>(ptrs, ints, flts, stream);
+    case 2:
+      return launch<ModeInt8>(ptrs, ints, flts, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

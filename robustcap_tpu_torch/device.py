@@ -21,10 +21,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def tree_map(fn, tree):
-    r"""Apply ``fn`` to every leaf of a tree of dicts, lists and tuples."""
+def tree_map(fn, tree, is_leaf=None):
+    r"""Apply ``fn`` to every leaf of a tree of dicts, lists and tuples;
+    a node for which ``is_leaf`` is true counts as one leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     return fn(tree)

@@ -35,12 +35,15 @@ pre-scan through the LSTM-scan kernel (``ops/lstm_scan.py``), and
 ``cfg.pallas_serve`` the whole steady step of ``forward_offline`` and
 ``StreamingNet.forward_chunk`` through the serve kernel
 (``ops/serve_scan.py``, one launch per chunk); the flag names are the JAX
-package's. ``cfg.int8_compute`` is not ported yet and raises
-``NotImplementedError``.
+package's. The weights may be float32, bfloat16 or int8 records
+(``nn/rnn.py``); ``cfg.int8_compute`` runs the gate products of int8
+records on int8 activations, and with ``pallas_serve`` picks the serve
+kernel's int8-gate mode.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import numpy as np
@@ -51,7 +54,7 @@ from ..device import resolve_device, tree_map
 from ..math.general import lerp
 from ..math.spatial import mat3_mul
 from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
-                      rnn_group_step, rnn_pair_step, rnn_step)
+                      is_quantized, prepare_scan_params, rnn_step)
 from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_constants,
                                  tail_plain)
 from ..ops.lstm_scan import rnn_scan_chunked
@@ -83,9 +86,6 @@ _HOST_KEYS = ("conf", "first_frame", "first_tran_valid")
 def _check_cfg(cfg: SigMPConfig):
     if cfg.pallas_serve:
         check_serve_cfg(cfg)
-    if cfg.int8_compute:
-        raise NotImplementedError(
-            "cfg.int8_compute (int8 gate matmuls) is ported in a later slice")
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +181,13 @@ def _any(a, b):
 # ---------------------------------------------------------------------------
 
 
+def _param_device(params) -> torch.device:
+    return params["rnn2"]["linear1"]["b"].device
+
+
 def init_carry(params, dtype=torch.float32) -> Dict:
     r"""Fresh streaming state on the parameters' device."""
-    dev = params["rnn2"]["layers"][0]["w_hh"].device
+    dev = _param_device(params)
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -286,7 +290,8 @@ def step_from_constants(consts, cfg: SigMPConfig,
                         output_contacts: bool = False,
                         precomputed_inertial: bool = False,
                         fuse_spec_heads: bool = True,
-                        cond_updater: bool = False):
+                        cond_updater: bool = False,
+                        stack_step=None):
     r""":func:`make_step` over the tail constants of a body model
     (``ops.geometry_tail.tail_constants``).
 
@@ -302,8 +307,13 @@ def step_from_constants(consts, cfg: SigMPConfig,
     speculative rnn7/rnn8 heads as one group, as the JAX step does; the port
     runs the group's stacks one after another, so the values are the same
     either way. ``precomputed_inertial`` reads rnn2/rnn3 outputs from
-    ``frame["out2"]``/``frame["out3"]`` (the chunk pre-scan)."""
+    ``frame["out2"]``/``frame["out3"]`` (the chunk pre-scan).
+    ``stack_step(params, x, (h, c)) -> (out, (h, c))`` evaluates one stack;
+    the default is ``nn.rnn.rnn_step`` with ``cfg.int8_compute`` (the serve
+    kernel's plain version passes one with the kernel's arithmetic)."""
     _check_cfg(cfg)
+    if stack_step is None:
+        stack_step = partial(rnn_step, int8_compute=cfg.int8_compute)
     dev = consts["parent"].device
     tail = geometry_tail if cfg.pallas_tail else tail_plain
     conf_lo, conf_hi = cfg.conf_range
@@ -318,9 +328,9 @@ def step_from_constants(consts, cfg: SigMPConfig,
         ``carry``, never writes it. ``heads_pre`` supplies already-evaluated
         ``(out7, out8, st7_new, st8_new)`` on the same input."""
         if heads_pre is None:
-            out7, out8, st7_new, st8_new = rnn_pair_step(
-                params["rnn7"], params["rnn8"], _cat(accr, orir, j3dr),
-                st["rnn7"], st["rnn8"])
+            x = _cat(accr, orir, j3dr)
+            out7, st7_new = stack_step(params["rnn7"], x, st["rnn7"])
+            out8, st8_new = stack_step(params["rnn8"], x, st["rnn8"])
         else:
             out7, out8, st7_new, st8_new = heads_pre
         T = tail(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
@@ -365,18 +375,15 @@ def step_from_constants(consts, cfg: SigMPConfig,
             out2, st2_new = frame["out2"], st["rnn2"]
             out3, st3_new = frame["out3"], st["rnn3"]
         else:
-            out2, st2_new = rnn_step(params["rnn2"], _cat(accr, orir),
-                                     st["rnn2"])
+            out2, st2_new = stack_step(params["rnn2"], _cat(accr, orir),
+                                       st["rnn2"])
             in3 = _cat(accr, orir, out2)
+            out3, st3_new = stack_step(params["rnn3"], in3, st["rnn3"])
             if (fuse_spec_heads and not include_first_frame_step
                     and cfg.use_vision_updater):
-                (out3, out7_s, out8_s), (st3_new, st7_s, st8_s) = \
-                    rnn_group_step(
-                        (params["rnn3"], params["rnn7"], params["rnn8"]),
-                        in3, (st["rnn3"], st["rnn7"], st["rnn8"]))
+                out7_s, st7_s = stack_step(params["rnn7"], in3, st["rnn7"])
+                out8_s, st8_s = stack_step(params["rnn8"], in3, st["rnn8"])
                 spec_heads = (out7_s, out8_s, st7_s, st8_s)
-            else:
-                out3, st3_new = rnn_step(params["rnn3"], in3, st["rnn3"])
         j3dr_i = out2
         vr = out3
 
@@ -384,17 +391,17 @@ def step_from_constants(consts, cfg: SigMPConfig,
 
         if include_first_frame_step:
             # ---- streaming variant: the reference's literal structure ----
-            out4, st4_new = rnn_step(params["rnn4"],
-                                     _cat(accc, oric, j2dc_norm), st["rnn4"])
+            out4, st4_new = stack_step(
+                params["rnn4"], _cat(accc, oric, j2dc_norm), st["rnn4"])
             st4_mid = _select(conf_vis or first_frame, st4_new, st["rnn4"])
             j3dr_v = (out4.reshape(23, 3)[:, :, None] * Rcr[None]).sum(1)
 
             # rnn6 can step twice on a first frame
             in6 = _cat(accc, oric, j2dc, out4)
-            out6_a, st6_a = rnn_step(params["rnn6"], in6, st["rnn6"])
+            out6_a, st6_a = stack_step(params["rnn6"], in6, st["rnn6"])
             st6_mid = _select(first_frame, st6_a, st["rnn6"])
             pc_first = out6_a.reshape(3)
-            out6_b, st6_b = rnn_step(params["rnn6"], in6, st6_mid)
+            out6_b, st6_b = stack_step(params["rnn6"], in6, st6_mid)
             st6_after = _select(conf_vis, st6_b, st6_mid)
             pc = out6_b.reshape(3) if conf_vis else pc_first
 
@@ -409,9 +416,9 @@ def step_from_constants(consts, cfg: SigMPConfig,
                 if cfg.live:
                     vu_cond = T["vision_count"] == cfg.update_vision_freq
                 syn4_in, syn6_in = refeed_inputs(accc, oric, T)
-                _, st6_syn = rnn_step(params["rnn6"], syn6_in, st6_after)
+                _, st6_syn = stack_step(params["rnn6"], syn6_in, st6_after)
                 st6_final = _select(vu_cond, st6_syn, st6_after)
-                _, st4_syn = rnn_step(params["rnn4"], syn4_in, st4_mid)
+                _, st4_syn = stack_step(params["rnn4"], syn4_in, st4_mid)
                 st4_final = _select(vu_cond, st4_syn, st4_mid)
             out4_first = carry["out4_first"]
         else:
@@ -432,22 +439,22 @@ def step_from_constants(consts, cfg: SigMPConfig,
                     refeed = (T["vision_count"] == cfg.update_vision_freq
                               if cfg.live else True)
                     syn4_in, syn6_in = refeed_inputs(accc, oric, T)
-                    _, st4_syn = rnn_step(params["rnn4"], syn4_in,
-                                          st["rnn4"])
-                    _, st6_syn = rnn_step(params["rnn6"], syn6_in,
-                                          st["rnn6"])
+                    _, st4_syn = stack_step(params["rnn4"], syn4_in,
+                                            st["rnn4"])
+                    _, st6_syn = stack_step(params["rnn6"], syn6_in,
+                                            st["rnn6"])
                     st4_final = _select(refeed, st4_syn, st["rnn4"])
                     st6_final = _select(refeed, st6_syn, st["rnn6"])
                     j3dr = j3dr_i.reshape(-1)
                 else:
-                    out4_eval, st4_eval = rnn_step(
+                    out4_eval, st4_eval = stack_step(
                         params["rnn4"], _cat(accc, oric, j2dc_norm),
                         st["rnn4"])
                     out4_eff = carry["out4_first"] if first_frame \
                         else out4_eval
                     j3dr_v = (out4_eff.reshape(23, 3)[:, :, None]
                               * Rcr[None]).sum(1)
-                    out6_eval, st6_final = rnn_step(
+                    out6_eval, st6_final = stack_step(
                         params["rnn6"], _cat(accc, oric, j2dc, out4_eff),
                         st["rnn6"])
                     j3dr = gate(conf, j3dr_i, j3dr_v, k_lerp)
@@ -478,8 +485,8 @@ def step_from_constants(consts, cfg: SigMPConfig,
                 real4_in = _cat(accc, oric, j2dc_norm)
                 in4 = (real4_in if syn4_in is None
                        else _select(vu_cond, syn4_in, real4_in))
-                out4_eval, st4_eval = rnn_step(params["rnn4"], in4,
-                                               st["rnn4"])
+                out4_eval, st4_eval = stack_step(params["rnn4"], in4,
+                                                 st["rnn4"])
                 out4_eff = carry["out4_first"] if first_frame else out4_eval
                 st4_final = _select(_any(conf_vis and not first_frame,
                                          vu_cond), st4_eval, st["rnn4"])
@@ -490,8 +497,8 @@ def step_from_constants(consts, cfg: SigMPConfig,
                 in6_real = _cat(accc, oric, j2dc, out4_eff)
                 in6 = (in6_real if syn6_in is None
                        else _select(vu_cond, syn6_in, in6_real))
-                out6_eval, st6_eval = rnn_step(params["rnn6"], in6,
-                                               st["rnn6"])
+                out6_eval, st6_eval = stack_step(params["rnn6"], in6,
+                                                 st["rnn6"])
                 st6_final = _select(_any(conf_vis, vu_cond), st6_eval,
                                     st["rnn6"])
                 pc = out6_eval.reshape(3) if conf_vis else pc_first
@@ -537,7 +544,8 @@ def step_from_constants(consts, cfg: SigMPConfig,
     return step
 
 
-def prescan_first_frame(params, body_model, carry, frame0):
+def prescan_first_frame(params, body_model, carry, frame0,
+                        int8_compute: bool = False):
     r"""Hoisted first-frame rnn4/rnn6 work: on a first frame, commit rnn4's
     real-input state advance and stash its output, and take rnn6's
     first-frame-only extra step, stashing ``pc_first``. The steady step then
@@ -548,9 +556,9 @@ def prescan_first_frame(params, body_model, carry, frame0):
     j2dc, accc, oric = frame0["j2dc"], frame0["accc"], frame0["oric"]
     out4, st4 = rnn_step(params["rnn4"],
                          _cat(accc, oric, _bbox_center_normalize(j2dc)),
-                         carry["states"]["rnn4"])
+                         carry["states"]["rnn4"], int8_compute=int8_compute)
     out6, st6 = rnn_step(params["rnn6"], _cat(accc, oric, j2dc, out4),
-                         carry["states"]["rnn6"])
+                         carry["states"]["rnn6"], int8_compute=int8_compute)
     carry = dict(carry)
     carry["states"] = dict(carry["states"], rnn4=st4, rnn6=st6)
     carry["pc_first"] = out6.reshape(3)
@@ -568,10 +576,10 @@ def _stack_outputs(outs):
 
 
 def _require_device(params, body_model, dev):
-    w = params["rnn2"]["layers"][0]["w_hh"]
-    if w.device != dev or body_model.device != dev:
+    w_dev = _param_device(params)
+    if w_dev != dev or body_model.device != dev:
         raise ValueError(
-            f"params on {w.device} and body model on {body_model.device}, "
+            f"params on {w_dev} and body model on {body_model.device}, "
             f"but the run was asked for on {dev}")
 
 
@@ -580,21 +588,23 @@ def forward_offline(params, body_model, cfg, j2dc, accc, oric,
                     return_contacts: bool = False, device="cuda"):
     r"""Whole-sequence inference: the first-frame prescan, then the steady
     step (``cond_updater=True``) frame by frame, or with ``cfg.pallas_serve``
-    one serve-kernel launch over the whole sequence. Returns ``(pose
-    [T,24,3,3], tran [T,3])``, plus contacts ``[T, 2]`` with
+    one serve-kernel launch over the whole sequence (its int8-gate mode
+    under ``cfg.int8_compute``, else the mode of the weights' dtype).
+    Returns ``(pose [T,24,3,3], tran [T,3])``, plus contacts ``[T, 2]`` with
     ``return_contacts``. Params and body model must already be on
     ``device``."""
     _check_cfg(cfg)
     dev = resolve_device(device)
     _require_device(params, body_model, dev)
+    params = prepare_scan_params(params, cfg.int8_compute)
     frames = _sequence_frames(j2dc, accc, oric, first_tran, first_frame,
                               gravityc, dev)
     carry = prescan_first_frame(params, body_model, init_carry(params),
-                                _frame_at(frames, 0))
+                                _frame_at(frames, 0), cfg.int8_compute)
     if cfg.pallas_serve:
+        prepped = prepare_serve_params(params, int8_gates=cfg.int8_compute)
         pose, tran, contact, _ = serve_scan(
-            prepare_serve_params(params), tail_constants(body_model), cfg,
-            frames, carry)
+            prepped, tail_constants(body_model), cfg, frames, carry)
         return (pose, tran, contact) if return_contacts else (pose, tran)
     step = make_step(body_model, cfg, include_first_frame_step=False,
                      output_contacts=return_contacts, cond_updater=True)
@@ -609,8 +619,11 @@ class StreamingNet:
     r"""Stateful wrapper with the reference's online API
     (``forward_online`` / ``reset_states``) plus ``forward_chunk``, around
     the steady step (each wide cell once per frame; first frames go through
-    the prescan first). With ``cfg.pallas_serve`` the serve kernel's
-    operands are prepared once here and every chunk is one launch."""
+    the prescan first). int8 records are dequantized once here (all but the
+    gate matrices under ``cfg.int8_compute``). With ``cfg.pallas_serve`` the
+    serve kernel's operands are prepared once here, in its int8-gate mode
+    under ``cfg.int8_compute``, else bf16 for a quantized tree, else the
+    weights' dtype, and every chunk is one launch."""
 
     def __init__(self, params, body_model, cfg: SigMPConfig = SigMPConfig(),
                  device="cuda"):
@@ -620,14 +633,16 @@ class StreamingNet:
         self.params = params
         self.cfg = cfg
         self.body_model = body_model
+        self._scan_params = prepare_scan_params(params, cfg.int8_compute)
         self._step = make_step(body_model, cfg,
                                include_first_frame_step=False,
                                cond_updater=True)
         self._chunk_steps = {}
         self._serve = None
         if cfg.pallas_serve:
-            self._serve = (prepare_serve_params(params),
-                           tail_constants(body_model))
+            self._serve = (prepare_serve_params(
+                params, torch.bfloat16 if is_quantized(params) else None,
+                int8_gates=cfg.int8_compute), tail_constants(body_model))
         self.reset_states()
 
     def reset_states(self):
@@ -639,9 +654,11 @@ class StreamingNet:
         frame = make_frame(j2dc, accc, oric, first_tran, first_frame,
                            gravityc, self.device)
         if first_frame:
-            self.carry = prescan_first_frame(self.params, self.body_model,
-                                             self.carry, frame)
-        self.carry, (pose, tran) = self._step(self.params, self.carry, frame)
+            self.carry = prescan_first_frame(self._scan_params,
+                                             self.body_model, self.carry,
+                                             frame, self.cfg.int8_compute)
+        self.carry, (pose, tran) = self._step(self._scan_params, self.carry,
+                                              frame)
         return pose, tran
 
     def forward_chunk(self, j2dc, accc, oric, gravityc=None):
@@ -695,7 +712,7 @@ class StreamingNet:
             frames["out2"], frames["out3"] = out2, out3
         outs = []
         for t in range(K):
-            carry, out = step(self.params, carry, _frame_at(frames, t))
+            carry, out = step(self._scan_params, carry, _frame_at(frames, t))
             outs.append(out)
         if use_kernel:
             carry["states"] = dict(carry["states"], rnn2=st2, rnn3=st3)

@@ -1,12 +1,20 @@
 r"""torch-layout LSTM stacks as plain functions on parameter dicts (port of
-the f32 path of ``robustcap_tpu/nn/rnn.py``).
+``robustcap_tpu/nn/rnn.py``).
 
 One module is linear1 -> ReLU -> an L-layer LSTM (gate order i, f, g, o;
 ``w_ih [4H, in]``, ``w_hh [4H, H]``, both biases) -> linear2, plus, for
 ``RNNWithInit``, a 3-layer MLP regressing the initial (h, c) from a label.
 Parameters are nested dicts/lists of tensors in exactly that layout, so the
 JAX package's parameter pytree and ``torch.nn.LSTM`` state dicts map one to
-one. The bf16/int8 weight modes and the Pure/Cycle variants are not ported.
+one.
+
+Weights come in three kinds, with the JAX package's rules: float32;
+bfloat16 (:func:`cast_params`), where the step computes in bf16 and returns
+the input's dtype; and int8 (:func:`quantize_params`), where every 2-D
+weight is a ``{"q": int8 [out, in], "scale": f32 [out, 1]}`` record that is
+dequantized to bf16 for compute, or, with ``int8_compute``, whose gate
+matrices meet dynamically quantized activations in an int8 x int8 product
+with int32 sums. The Pure/Cycle variants are not ported.
 """
 
 from __future__ import annotations
@@ -16,10 +24,15 @@ import math
 import numpy as np
 import torch
 
+from ..device import tree_map
+
 __all__ = [
     "init_linear", "init_lstm_layer", "init_rnn_params", "init_state",
     "lstm_cell", "rnn_step", "rnn_group_step", "rnn_pair_step", "rnn_scan",
-    "init_net_apply", "rnn_params_from_torch",
+    "init_net_apply", "rnn_params_from_torch", "cast_params",
+    "quantize_tensor", "dequantize_tensor", "quantize_params",
+    "dequantize_params", "dequantize_non_gate_params", "is_quantized",
+    "quantize_activation", "prepare_scan_params",
 ]
 
 
@@ -63,72 +76,248 @@ def init_rnn_params(gen: torch.Generator, input_size: int, output_size: int,
     return params
 
 
+# ---------------------------------------------------------------------------
+# Weight kinds: bf16 casts and int8 records
+# ---------------------------------------------------------------------------
+
+_QUANT_KEYS = {"q", "scale"}
+
+
+def _is_qtensor(x) -> bool:
+    return isinstance(x, dict) and set(x) == _QUANT_KEYS
+
+
+def _leaves(tree):
+    if _is_qtensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def is_quantized(params) -> bool:
+    r"""True if ``params`` (any nesting) holds int8-quantized weights."""
+    return any(_is_qtensor(leaf) for leaf in _leaves(params))
+
+
+def cast_params(params, dtype):
+    r"""Floating-point leaves cast to ``dtype``; a quantized tree is returned
+    as it is (casting its payload would dequantize it)."""
+    if is_quantized(params):
+        return params
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point() else x, params)
+
+
+def quantize_tensor(w):
+    r"""Symmetric per-output-channel int8 quantization of ``w [out, in]`` ->
+    ``{"q": int8 [out, in], "scale": f32 [out, 1]}``. The row max and the
+    scale are taken in ``w``'s dtype, as the JAX function does."""
+    amax = w.abs().amax(-1, keepdim=True)
+    scale = (torch.clamp_min(amax, 1e-12) / 127.0).to(torch.float32)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def dequantize_tensor(w, dtype=torch.float32):
+    r"""Inverse of :func:`quantize_tensor` (up to rounding), computed in
+    ``dtype``."""
+    return w["q"].to(dtype) * w["scale"].to(dtype)
+
+
+def quantize_params(params):
+    r"""Every 2-D floating weight of a tree (one module or the six-module
+    bank) as an int8 record; biases stay as they are. Idempotent."""
+    def q(x):
+        if _is_qtensor(x):
+            return x
+        if isinstance(x, torch.Tensor) and x.dim() == 2 \
+                and x.is_floating_point():
+            return quantize_tensor(x)
+        return x
+    return tree_map(q, params, is_leaf=_is_qtensor)
+
+
+def dequantize_params(params, dtype=torch.bfloat16):
+    r"""Every int8 record as a dense ``dtype`` tensor; an unquantized tree is
+    returned as it is."""
+    if not is_quantized(params):
+        return params
+    return tree_map(lambda x: dequantize_tensor(x, dtype) if _is_qtensor(x)
+                    else x, params, is_leaf=_is_qtensor)
+
+
+def quantize_activation(x):
+    r"""Dynamic symmetric per-row int8 quantization ``x [..., K] -> (q int8
+    [..., K], scale f32 [..., 1])``; the row max in ``x``'s dtype, the rest
+    in float32. ``torch.round`` rounds half to even, as ``jnp.round``."""
+    amax = x.abs().amax(-1, keepdim=True)
+    scale = torch.clamp_min(amax.to(torch.float32), 1e-12) / 127.0
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dot_i8(xq, wq):
+    r"""``xq [..., K] @ wq [out, K]^T`` of int8 operands, exact, as int32.
+    An f32 product is not exact (127 * 127 * 1280 > 2^24): the CPU sums in
+    int32, a CUDA device in float64 (it has no int32 matmul), which holds
+    every partial sum exactly."""
+    if xq.device.type == "cpu":
+        return xq.to(torch.int32) @ wq.to(torch.int32).T
+    return (xq.to(torch.float64) @ wq.to(torch.float64).T).to(torch.int32)
+
+
+def _qmatmul(x, w, out_dtype):
+    r"""``x @ w^T`` with dynamic int8 activations against an int8 record
+    ``w``; the int32 sums rescaled in float32, the result in ``out_dtype``."""
+    xq, sx = quantize_activation(x)
+    z = _dot_i8(xq, w["q"])
+    return (z.to(torch.float32) * sx * w["scale"][:, 0]).to(out_dtype)
+
+
+def dequantize_non_gate_params(params, dtype=torch.bfloat16):
+    r"""Every int8 record dequantized to ``dtype`` except the LSTM gate
+    matrices (``layers[*].w_ih/w_hh``), which ``int8_compute`` multiplies
+    as they are."""
+    if not is_quantized(params):
+        return params
+
+    def walk(node, under_layers=False):
+        if _is_qtensor(node):
+            return node if under_layers else dequantize_tensor(node, dtype)
+        if isinstance(node, dict):
+            return {k: walk(v, under_layers or k == "layers")
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, under_layers) for v in node)
+        return node
+
+    return walk(params)
+
+
+def prepare_scan_params(params, int8_compute: bool = False,
+                        dtype=torch.bfloat16):
+    r"""A tree ready for a long scan: every int8 record dequantized once, or,
+    with ``int8_compute``, every one but the gate matrices."""
+    return (dequantize_non_gate_params(params, dtype) if int8_compute
+            else dequantize_params(params, dtype))
+
+
+def _wval(w, dtype):
+    r"""A weight leaf as a dense tensor in ``dtype`` (dequantized if int8)."""
+    if _is_qtensor(w):
+        return dequantize_tensor(w, dtype)
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+def _wshape(w):
+    return tuple((w["q"] if _is_qtensor(w) else w).shape)
+
+
+def _compute_dtype(params):
+    r"""The dtype the gate math runs in: the stored weights', or bfloat16
+    for int8 records."""
+    w = params["linear1"]["w"]
+    return torch.bfloat16 if _is_qtensor(w) else w.dtype
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
 def init_state(params, batch_shape=(), dtype=torch.float32):
     r"""Zero (h, c) state: each [num_layers, *batch_shape, hidden] on the
     parameters' device."""
     L = len(params["layers"])
     w_hh = params["layers"][0]["w_hh"]
-    shape = (L,) + tuple(batch_shape) + (w_hh.shape[1],)
-    return (torch.zeros(shape, dtype=dtype, device=w_hh.device),
-            torch.zeros(shape, dtype=dtype, device=w_hh.device))
+    dev = (w_hh["q"] if _is_qtensor(w_hh) else w_hh).device
+    shape = (L,) + tuple(batch_shape) + (_wshape(w_hh)[1],)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
 
 
 def _linear(p, x):
-    return x @ p["w"].T + p["b"]
+    return x @ _wval(p["w"], x.dtype).T + p["b"].to(x.dtype)
 
 
-def lstm_cell(layer, x, h, c):
-    r"""One LSTM cell step, gate order (i, f, g, o)."""
-    z = x @ layer["w_ih"].T + h @ layer["w_hh"].T \
-        + (layer["b_ih"] + layer["b_hh"])
+def lstm_cell(layer, x, h, c, *, int8_compute: bool = False):
+    r"""One LSTM cell step, gate order (i, f, g, o), in ``x``'s dtype.
+
+    ``int8_compute`` with int8 gate matrices runs the two gate products as
+    :func:`_qmatmul` (x and h quantized separately); otherwise int8 records
+    are dequantized to ``x``'s dtype first."""
+    b = (layer["b_ih"] + layer["b_hh"]).to(x.dtype)
+    if int8_compute and _is_qtensor(layer["w_ih"]):
+        z = (_qmatmul(x, layer["w_ih"], x.dtype)
+             + _qmatmul(h, layer["w_hh"], x.dtype) + b)
+    else:
+        z = x @ _wval(layer["w_ih"], x.dtype).T \
+            + h @ _wval(layer["w_hh"], x.dtype).T + b
     i, f, g, o = z.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
 
 
-def rnn_step(params, x, state):
+def rnn_step(params, x, state, *, int8_compute: bool = False):
     r"""One frame through linear1 -> ReLU -> LSTM stack -> linear2.
-    ``state`` is (h, c), each [L, ..., H]; returns (out, (h, c))."""
+    ``state`` is (h, c), each [L, ..., H]; returns (out, (h, c)). The math
+    runs in the weights' dtype (bf16 for int8 records) and the results come
+    back in ``x``'s dtype."""
     h, c = state
+    w_dtype = _compute_dtype(params)
+    out_dtype = x.dtype
+    if x.dtype != w_dtype:
+        x, h, c = x.to(w_dtype), h.to(w_dtype), c.to(w_dtype)
     inp = torch.relu(_linear(params["linear1"], x))
     new_h, new_c = [], []
     for l, layer in enumerate(params["layers"]):
-        hn, cn = lstm_cell(layer, inp, h[l], c[l])
+        hn, cn = lstm_cell(layer, inp, h[l], c[l], int8_compute=int8_compute)
         new_h.append(hn)
         new_c.append(cn)
         inp = hn
     out = _linear(params["linear2"], inp)
-    return out, (torch.stack(new_h), torch.stack(new_c))
+    return (out.to(out_dtype), (torch.stack(new_h).to(out_dtype),
+                                torch.stack(new_c).to(out_dtype)))
 
 
-def rnn_group_step(params_seq, x, states):
+def rnn_group_step(params_seq, x, states, *, int8_compute: bool = False):
     r"""N stacks that read the same input, one after another (the JAX
     package batches their matmuls; the values are the same). Returns
     ``(outs, new_states)`` tuples."""
     outs, new_states = [], []
     for p, s in zip(params_seq, states):
-        o, ns = rnn_step(p, x, s)
+        o, ns = rnn_step(p, x, s, int8_compute=int8_compute)
         outs.append(o)
         new_states.append(ns)
     return tuple(outs), tuple(new_states)
 
 
-def rnn_pair_step(params_a, params_b, x, state_a, state_b):
+def rnn_pair_step(params_a, params_b, x, state_a, state_b, *,
+                  int8_compute: bool = False):
     r"""Two stacks on one input; returns ``(out_a, out_b, state_a,
     state_b)``."""
-    outs, sts = rnn_group_step((params_a, params_b), x, (state_a, state_b))
+    outs, sts = rnn_group_step((params_a, params_b), x, (state_a, state_b),
+                               int8_compute=int8_compute)
     return outs[0], outs[1], sts[0], sts[1]
 
 
-def rnn_scan(params, xs, state0=None):
+def rnn_scan(params, xs, state0=None, *, int8_compute: bool = False):
     r"""A whole sequence, one frame after another: xs [T, ..., in] ->
-    (ys [T, ..., out], state)."""
+    (ys [T, ..., out], state). int8 records are dequantized once before the
+    loop (all but the gate matrices with ``int8_compute``)."""
+    params = prepare_scan_params(params, int8_compute)
     state = init_state(params, xs.shape[1:-1], xs.dtype) if state0 is None \
         else state0
     ys = []
     for t in range(xs.shape[0]):
-        y, state = rnn_step(params, xs[t], state)
+        y, state = rnn_step(params, xs[t], state, int8_compute=int8_compute)
         ys.append(y)
     return torch.stack(ys), state
 
@@ -136,12 +325,13 @@ def rnn_scan(params, xs, state0=None):
 def init_net_apply(params, first_label):
     r"""RNNWithInit's (h0, c0) regression from the first label:
     ``first_label`` [..., out] -> (h, c) each [L, ..., H], in torch's
-    ``view(B, 2, L, H).permute(1, 2, 0, 3)`` layout."""
+    ``view(B, 2, L, H).permute(1, 2, 0, 3)`` layout. Runs in the label's
+    dtype, whatever the weights' kind."""
     x = torch.relu(_linear(params["init_net"][0], first_label))
     x = torch.relu(_linear(params["init_net"][1], x))
     x = _linear(params["init_net"][2], x)
     L = len(params["layers"])
-    H = params["layers"][0]["w_hh"].shape[1]
+    H = _wshape(params["layers"][0]["w_hh"])[1]
     hc = x.reshape(x.shape[:-1] + (2, L, H))
     h = torch.movedim(hc[..., 0, :, :], -2, 0)
     c = torch.movedim(hc[..., 1, :, :], -2, 0)

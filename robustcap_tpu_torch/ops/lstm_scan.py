@@ -8,7 +8,8 @@ CUDA tensor each chunk is one launch of the hand-written kernel
 ``csrc/lstm_scan.cu`` (the time loop runs inside the launch); on a CPU tensor
 the wrapper runs the plain version, :func:`rnn_scan_plain`. There is no
 other fallback: on any other device, or when the kernel cannot launch, it
-raises.
+raises. bf16 and int8-quantized weights are dequantized and cast to float32
+first, as the JAX kernel's wrapper does: the kernel computes in float32.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import ctypes
 
 import torch
 
-from ..nn.rnn import init_state, rnn_scan
+from ..device import tree_map
+from ..nn.rnn import dequantize_params, init_state, rnn_scan
 from . import _build
 
 __all__ = ["LAUNCHES", "rnn_scan_plain", "rnn_scan_chunked"]
@@ -99,11 +101,14 @@ def _launch(params, xs, state):
 def rnn_scan_chunked(params, xs, state=None, max_chunk: int = 256):
     r"""Run ``xs [T, in]`` through a 2-layer stack in chunks of at most
     ``max_chunk`` frames -> ``(ys [T, out], (h, c) each [2, H])``.
-    ``state`` seeds ``(h, c)`` (zeros for a fresh sequence)."""
+    ``state`` seeds ``(h, c)`` (zeros for a fresh sequence). Weights of any
+    kind are used as float32 values."""
     if len(params["layers"]) != 2:
         raise ValueError("the LSTM-scan kernel takes 2-layer stacks")
     if xs.dim() != 2:
         raise ValueError(f"xs must be [T, in], got {tuple(xs.shape)}")
+    params = tree_map(lambda t: t.to(torch.float32),
+                      dequantize_params(params))
     if state is None:
         state = init_state(params, (), xs.dtype)
     if xs.device.type == "cpu":

@@ -12,8 +12,12 @@ kernel ``csrc/serve_scan.cu``; on a CPU tensor it runs the plain version,
 :func:`serve_scan_plain`, a frame loop of that step. There is no other
 fallback: on any other device, or when the kernel cannot launch, it raises.
 
-This slice takes dense float32 weights. The kernel's bf16-weight and
-int8-gate modes are ported in a later slice.
+The kernel takes the weights in one of three modes, as the JAX kernel does
+(:func:`prepare_serve_params`): float32; bfloat16 rows, each activation
+rounded to bf16 before a product and every sum, gate and state kept in
+float32; and int8 gate matrices with per-row scales under
+``cfg.int8_compute``, whose activations are quantized per row as the XLA
+``int8_compute`` step does, with linear1/linear2 in bf16.
 """
 
 from __future__ import annotations
@@ -25,13 +29,19 @@ import numpy as np
 import torch
 
 from ..math.spatial import mat3_mul
+from ..nn.rnn import (_dot_i8, _is_qtensor, dequantize_params,
+                      dequantize_tensor, quantize_activation,
+                      quantize_tensor)
 from . import _build
 
-__all__ = ["LAUNCHES", "prepare_serve_params", "check_serve_cfg",
+__all__ = ["LAUNCHES", "MODES", "prepare_serve_params", "check_serve_cfg",
            "serve_scan_plain", "serve_scan"]
 
 # kernel launches so far (one per chunk on CUDA tensors)
 LAUNCHES = 0
+
+# weight modes, in the order of the kernel's mode argument
+MODES = ("f32", "bf16", "int8")
 
 # stack order of the kernel's operands
 _STACKS = ("rnn2", "rnn3", "rnn4", "rnn6", "rnn7", "rnn8")
@@ -40,41 +50,80 @@ _SYN = 267      # synthetic keypoints: 99 + 99 + 69
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p]
 
+_F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
 
-def prepare_serve_params(params):
+
+def _gate_record(w):
+    r"""An int8 gate matrix and its per-row scales: the record as it is, or
+    ``quantize_tensor`` of a dense matrix (what ``quantize_params``
+    stores)."""
+    return w if _is_qtensor(w) else quantize_tensor(w)
+
+
+def prepare_serve_params(params, dtype=None, int8_gates=False):
     r"""The kernel's operands of one weight set, built once and reused
-    across chunks: per stack, the contiguous weights and the summed gate
-    biases ``b_ih + b_hh`` of each layer; rnn2's ``init_net``.
+    across chunks, as the JAX ``prepare_serve_params`` builds them:
 
-    Raises ``NotImplementedError`` for weights that are not dense float32
-    tensors (the bf16 and int8 modes come in a later slice), and
-    ``ValueError`` unless rnn2/3/7/8 share one hidden size, as the JAX
-    kernel requires."""
-    def dense(name, t):
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"serve kernel: {name} is not a dense float32 tensor; the "
-                "bf16-weight and int8-gate modes are ported in a later slice")
-        return t.contiguous()
+    * ``int8_gates``: int8 ``w_ih``/``w_hh`` with per-row f32 scales (a
+      dense matrix is quantized here), linear1/linear2 in bf16 (int8
+      records dequantized to bf16);
+    * else ``dtype`` (``None``: the weights' own; a quantized tree is first
+      dequantized to bf16): every weight matrix in that dtype, float32 or
+      bfloat16;
+    * in every mode float32 biases, the gate biases summed ``b_ih + b_hh``
+      in the tree's dtype, and rnn2's ``init_net`` held in float32 (int8
+      records dequantized to bf16 first).
 
-    stacks = {}
+    ``"params"`` holds the same tensors as a parameter tree for the plain
+    version: the summed gate bias under ``b_ih`` and zeros under
+    ``b_hh``. Raises ``ValueError`` for another dtype, for stacks that are
+    not 2 layers deep, or unless rnn2/3/7/8 share one hidden size, as the
+    JAX kernel requires."""
+    if int8_gates:
+        mode, dtype = "int8", _BF16
+    else:
+        params = dequantize_params(params)
+        if dtype is None:
+            dtype = params["rnn2"]["layers"][0]["w_ih"].dtype
+        if dtype not in (_F32, _BF16):
+            raise ValueError(f"serve kernel: no mode for {dtype} weights; it "
+                             "takes float32, bfloat16 or int8 gates")
+        mode = "f32" if dtype == _F32 else "bf16"
+
+    def dense(w):
+        w = dequantize_tensor(w, dtype) if _is_qtensor(w) else w.to(dtype)
+        return w.contiguous()
+
+    stacks, plain = {}, {}
     for name in _STACKS:
         p = params[name]
         if len(p["layers"]) != 2:
             raise ValueError("the serve kernel takes 2-layer stacks")
-        w1 = dense(f"{name}.linear1.w", p["linear1"]["w"])
-        layers = [{k: dense(f"{name}.layers[{i}].{k}", v)
-                   for k, v in layer.items()}
-                  for i, layer in enumerate(p["layers"])]
-        w2 = dense(f"{name}.linear2.w", p["linear2"]["w"])
-        stacks[name] = {
-            "w1": w1, "b1": dense(f"{name}.linear1.b", p["linear1"]["b"]),
-            "wih": [l["w_ih"] for l in layers],
-            "whh": [l["w_hh"] for l in layers],
-            "bias": [(l["b_ih"] + l["b_hh"]).contiguous() for l in layers],
-            "w2": w2, "b2": dense(f"{name}.linear2.b", p["linear2"]["b"]),
-            "in": int(w1.shape[1]), "H": int(layers[0]["w_hh"].shape[1]),
-            "out": int(w2.shape[0]),
+        w1, w2 = dense(p["linear1"]["w"]), dense(p["linear2"]["w"])
+        s = {"w1": w1, "b1": p["linear1"]["b"].to(_F32).contiguous(),
+             "bias": [(l["b_ih"] + l["b_hh"]).to(_F32).contiguous()
+                      for l in p["layers"]],
+             "w2": w2, "b2": p["linear2"]["b"].to(_F32).contiguous(),
+             "in": int(w1.shape[1]), "out": int(w2.shape[0])}
+        if mode == "int8":
+            for k in ("w_ih", "w_hh"):
+                recs = [_gate_record(l[k]) for l in p["layers"]]
+                s[k] = [r["q"].contiguous() for r in recs]
+                s[k + "_s"] = [r["scale"][:, 0].contiguous() for r in recs]
+            gates = [{k: {"q": s[k][i], "scale": s[k + "_s"][i][:, None]}
+                      for k in ("w_ih", "w_hh")} for i in range(2)]
+        else:
+            for k in ("w_ih", "w_hh"):
+                s[k] = [dense(l[k]) for l in p["layers"]]
+            gates = [{k: s[k][i] for k in ("w_ih", "w_hh")}
+                     for i in range(2)]
+        s["H"] = int(s["w_hh"][0].shape[1])
+        stacks[name] = s
+        plain[name] = {
+            "linear1": {"w": w1, "b": s["b1"]},
+            "layers": [dict(g, b_ih=b, b_hh=torch.zeros_like(b))
+                       for g, b in zip(gates, s["bias"])],
+            "linear2": {"w": w2, "b": s["b2"]},
         }
     H = {n: stacks[n]["H"] for n in _STACKS}
     if not H["rnn2"] == H["rnn3"] == H["rnn7"] == H["rnn8"]:
@@ -82,36 +131,101 @@ def prepare_serve_params(params):
                          "their hidden sizes must match")
     init = params["rnn2"].get("init_net")
     if init is not None:
-        init = [(dense(f"rnn2.init_net[{i}].w", l["w"]),
-                 dense(f"rnn2.init_net[{i}].b", l["b"]))
-                for i, l in enumerate(init)]
-    return {"params": params, "stacks": stacks, "init": init, "H": H}
+        init = [((dequantize_tensor(l["w"], _BF16) if _is_qtensor(l["w"])
+                  else l["w"]).to(_F32).contiguous(),
+                 l["b"].to(_F32).contiguous()) for l in init]
+        plain["rnn2"]["init_net"] = [{"w": w, "b": b} for w, b in init]
+    return {"params": plain, "stacks": stacks, "init": init, "H": H,
+            "mode": mode}
 
 
 def check_serve_cfg(cfg):
-    r"""Refuse what the serve path does not take: the int8 gates (a later
-    slice), and the reprojection refinement or a disabled vision updater
-    (the JAX serve kernel refuses them too)."""
-    if cfg.int8_compute:
-        raise NotImplementedError(
-            "cfg.int8_compute (int8 gate matmuls) is ported in a later slice")
+    r"""Refuse what the serve path does not take: the reprojection
+    refinement or a disabled vision updater (the JAX serve kernel refuses
+    them too)."""
     if cfg.use_reproj_opt or not cfg.use_vision_updater:
         raise ValueError("pallas_serve supports the standard serving "
                          "configuration (vision updater on, no reproj)")
+
+
+def _bf(t):
+    r"""``t`` rounded to bfloat16, held in float32."""
+    return t.to(_BF16).to(_F32)
+
+
+def _plain_stack_step(mode):
+    r"""One stack evaluation with the kernel's arithmetic in ``mode``, on a
+    stack of ``prepare_serve_params(...)["params"]``: ``(params, x,
+    (h, c)) -> (out, (h, c))``, all float32; ``None`` for f32, whose
+    arithmetic is ``nn.rnn.rnn_step``'s (the step's default).
+
+    * bf16: the activation side of every product rounded to bf16; sums,
+      gates and state in float32.
+    * int8: the rounding points of the JAX kernel's int8 cell
+      (``pallas_serve.py`` ``cells``, ``lin1``, ``head_out``): x and h cast
+      to bf16 and quantized per row, int32 sums, the rescale in float32 and
+      bf16 ``zx``, ``zh`` and their sum with the bias; transcendentals in
+      float32 rounded to bf16; the cell update in bf16; linear1 and linear2
+      with bf16 bias adds."""
+    if mode == "f32":
+        return None
+
+    def dense_out(lin, x):
+        z = _bf(x) @ lin["w"].to(_F32).T
+        return _bf(_bf(z) + _bf(lin["b"])) if mode == "int8" else z + lin["b"]
+
+    def int8_cell(layer, x, h, c):
+        def gate_half(v, rec):
+            q, s = quantize_activation(_bf(v))
+            return _bf(_dot_i8(q, rec["q"]).to(_F32) * s * rec["scale"][:, 0])
+        z = _bf(_bf(gate_half(x, layer["w_ih"]) + gate_half(h, layer["w_hh"]))
+                + _bf(layer["b_ih"]))
+        i, f, g, o = z.chunk(4, dim=-1)
+        i, f, o = (_bf(torch.sigmoid(v)) for v in (i, f, o))
+        g = _bf(torch.tanh(g))
+        c_new = _bf(_bf(f * _bf(c)) + _bf(i * g))
+        h_new = _bf(o * _bf(torch.tanh(c_new)))
+        return h_new, c_new
+
+    def bf16_cell(layer, x, h, c):
+        z = _bf(x) @ layer["w_ih"].to(_F32).T \
+            + _bf(h) @ layer["w_hh"].to(_F32).T \
+            + (layer["b_ih"] + layer["b_hh"])
+        i, f, g, o = z.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return h_new, c_new
+
+    run_cell = int8_cell if mode == "int8" else bf16_cell
+
+    def step(params, x, state):
+        h, c = state
+        inp = torch.relu(dense_out(params["linear1"], x))
+        new_h, new_c = [], []
+        for l, layer in enumerate(params["layers"]):
+            inp, cn = run_cell(layer, inp, h[l], c[l])
+            new_h.append(inp)
+            new_c.append(cn)
+        return (dense_out(params["linear2"], inp),
+                (torch.stack(new_h), torch.stack(new_c)))
+
+    return step
 
 
 def serve_scan_plain(prepped, consts, cfg, frames, carry):
     r"""The plain PyTorch version: frame after frame through the branchless
     steady step (``make_step(include_first_frame_step=False,
     cond_updater=False, fuse_spec_heads=False, output_contacts=True)``) with
-    the plain tail. Returns ``(pose [T,24,3,3], tran [T,3], contact [T,2],
-    new_carry)``."""
+    the plain tail, every stack evaluated with the kernel's arithmetic in
+    the prepared mode. Returns ``(pose [T,24,3,3], tran [T,3],
+    contact [T,2], new_carry)``."""
     from ..models import sig_mp   # sig_mp imports this module
     cfg = dataclasses.replace(cfg, pallas_tail=False, pallas_inertial=False,
                               pallas_serve=False)
     step = sig_mp.step_from_constants(
         consts, cfg, include_first_frame_step=False, output_contacts=True,
-        fuse_spec_heads=False, cond_updater=False)
+        fuse_spec_heads=False, cond_updater=False,
+        stack_step=_plain_stack_step(prepped["mode"]))
     outs = []
     for t in range(len(frames["conf"])):
         carry, out = step(prepped["params"], carry,
@@ -186,7 +300,10 @@ def _launch(prepped, consts, cfg, frames, carry):
         keep.append(t)
         return t.data_ptr()
 
-    ptrs, ints = [], []
+    mode = prepped["mode"]
+    dense_t = _F32 if mode == "f32" else _BF16
+    gate_t = {"f32": _F32, "bf16": _BF16, "int8": _I8}[mode]
+    ptrs, ints = [], [MODES.index(mode)]
     states, work = carry["states"], {}
     for name in _STACKS:
         s = prepped["stacks"][name]
@@ -196,12 +313,17 @@ def _launch(prepped, consts, cfg, frames, carry):
         hs[:, 0] = h0
         cs = c0.to(f32).clone().contiguous()
         work[name] = (hs, cs)
-        ptrs += [ptr(s["w1"], shape=(H, s["in"])), ptr(s["b1"], shape=(H,))]
+        ptrs += [ptr(s["w1"], dense_t, (H, s["in"])),
+                 ptr(s["b1"], shape=(H,))]
         for l in range(2):
-            ptrs += [ptr(s["wih"][l], shape=(4 * H, H)),
-                     ptr(s["whh"][l], shape=(4 * H, H)),
+            ptrs += [ptr(s["w_ih"][l], gate_t, (4 * H, H)),
+                     ptr(s["w_hh"][l], gate_t, (4 * H, H)),
                      ptr(s["bias"][l], shape=(4 * H,))]
-        ptrs += [ptr(s["w2"], shape=(n_out, H)), ptr(s["b2"], shape=(n_out,)),
+            ptrs += ([ptr(s["w_ih_s"][l], shape=(4 * H,)),
+                      ptr(s["w_hh_s"][l], shape=(4 * H,))]
+                     if mode == "int8" else [0, 0])
+        ptrs += [ptr(s["w2"], dense_t, (n_out, H)),
+                 ptr(s["b2"], shape=(n_out,)),
                  ptr(hs), ptr(cs, shape=(2, H)),
                  ptr(torch.empty(H, dtype=f32, device=dev)),
                  ptr(torch.empty((2, H), dtype=f32, device=dev)),
@@ -312,8 +434,11 @@ def serve_scan(prepped, consts, cfg, frames, carry):
     tran [T,3], contact [T,2], new_carry)``."""
     check_serve_cfg(cfg)
     dev = frames["j2dc"].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no serve path for device {dev}")
+    if bool(cfg.int8_compute) != (prepped["mode"] == "int8"):
+        raise ValueError("cfg.int8_compute requires int8_gates prepped "
+                         "params (and vice versa)")
     if dev.type == "cpu":
         return serve_scan_plain(prepped, consts, cfg, frames, carry)
-    if dev.type != "cuda":
-        raise ValueError(f"no serve path for device {dev}")
     return _launch(prepped, consts, cfg, frames, carry)

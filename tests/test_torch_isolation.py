@@ -1,6 +1,7 @@
 r"""The port stands alone: it imports neither ``jax`` nor the JAX package,
-its entry points default to the card and refuse to fall back to the CPU,
-and the parts not ported yet raise instead of running another path."""
+not even while it runs its bf16/int8 paths; its entry points default to the
+card and refuse to fall back to the CPU; and what a path does not take
+raises instead of running another path."""
 
 import ast
 import os
@@ -23,11 +24,47 @@ def _submodules():
         robustcap_tpu_torch.__path__, "robustcap_tpu_torch."))
 
 
+# Drives what the port added for the bf16/int8 weights in the same process:
+# quantization, the int8 step, and the serve path in its three modes.
+_DRIVE = """
+import torch
+from robustcap_tpu_torch.config import SigMPConfig
+from robustcap_tpu_torch.models import sig_mp
+from robustcap_tpu_torch.nn import rnn
+from robustcap_tpu_torch.ops import serve_scan
+from robustcap_tpu_torch.ops.geometry_tail import tail_constants
+from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+specs = {"rnn2": (72, 69, 8, 0.4, True), "rnn3": (141, 3, 8, 0.4, False),
+         "rnn4": (171, 69, 12, 0.4, False), "rnn6": (240, 3, 10, 0.4, False),
+         "rnn7": (141, 144, 8, 0.1, False), "rnn8": (141, 2, 8, 0.4, False)}
+p = sig_mp.init_params(torch.Generator().manual_seed(0), specs, device="cpu")
+model = ParametricModel(data=synthetic_smpl_data(num_verts=100), device="cpu")
+q = rnn.quantize_params(p)
+cfg8 = SigMPConfig(int8_compute=True)
+frame = sig_mp.make_frame(torch.rand(33, 3), torch.randn(6, 3),
+                          torch.eye(3).expand(6, 3, 3), device="cpu")
+carry, out = sig_mp.make_step(model, cfg8)(rnn.prepare_scan_params(q, True),
+                                           sig_mp.init_carry(q), frame)
+assert torch.isfinite(out[0]).all()
+frames = sig_mp._sequence_frames(torch.rand(2, 33, 3), torch.randn(2, 6, 3),
+                                 torch.eye(3).expand(2, 6, 3, 3), None,
+                                 False, None, torch.device("cpu"))
+for w, int8 in ((p, False), (rnn.cast_params(p, torch.bfloat16), False),
+                (q, True)):
+    prepped = serve_scan.prepare_serve_params(w, int8_gates=int8)
+    pose = serve_scan.serve_scan(prepped, tail_constants(model),
+                                 SigMPConfig(int8_compute=int8), frames,
+                                 sig_mp.init_carry(w))[0]
+    assert torch.isfinite(pose).all(), prepped["mode"]
+"""
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for name in {['robustcap_tpu_torch'] + _submodules()!r}:\n"
         "    importlib.import_module(name)\n"
+        + _DRIVE +
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m == 'robustcap_tpu'"
         " or m.startswith('robustcap_tpu.'))\n"
@@ -92,32 +129,42 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])
 def test_unported_options_raise(field):
-    r"""``int8_compute`` is not ported yet; ``pallas_serve`` is, and refuses
-    what the JAX serve path refuses (the reprojection refinement), and the
-    int8 gates it does not have yet."""
+    r"""What the serve path does not take raises instead of running another
+    path: the reprojection refinement (as in the JAX serve kernel), and a
+    ``cfg.int8_compute`` that disagrees with the prepared weight mode."""
     from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.nn.rnn import quantize_params
+    from robustcap_tpu_torch.ops import serve_scan
+    from robustcap_tpu_torch.ops.geometry_tail import tail_constants
     from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
     from test_torch_tail import SMALL_SPECS
     model = ParametricModel(data=synthetic_smpl_data(num_verts=100),
                             device="cpu")
     params = sig_mp.init_params(torch.Generator().manual_seed(0),
                                 SMALL_SPECS, device="cpu")
-    refusals = [(SigMPConfig(**{field: True}), NotImplementedError,
-                 "later slice")]
     if field == "pallas_serve":
-        refusals = [
-            (SigMPConfig(pallas_serve=True, use_reproj_opt=True), ValueError,
-             "standard serving configuration"),
-            (SigMPConfig(pallas_serve=True, int8_compute=True),
-             NotImplementedError, "later slice")]
-    for cfg, error, match in refusals:
-        with pytest.raises(error, match=match):
+        cfg = SigMPConfig(pallas_serve=True, use_reproj_opt=True)
+        with pytest.raises(ValueError, match="standard serving"):
             sig_mp.StreamingNet(params, model, cfg, device="cpu")
-        with pytest.raises(error, match=match):
+        with pytest.raises(ValueError, match="standard serving"):
             sig_mp.forward_offline(params, model, cfg, torch.zeros(2, 33, 3),
                                    torch.zeros(2, 6, 3),
                                    torch.eye(3).expand(2, 6, 3, 3),
                                    device="cpu")
+        return
+    frames = sig_mp._sequence_frames(
+        torch.rand(2, 33, 3), torch.zeros(2, 6, 3),
+        torch.eye(3).expand(2, 6, 3, 3), None, False, None,
+        torch.device("cpu"))
+    for weights, int8_gates, cfg in (
+            (params, False, SigMPConfig(int8_compute=True)),
+            (quantize_params(params), False, SigMPConfig(int8_compute=True)),
+            (quantize_params(params), True, SigMPConfig())):
+        prepped = serve_scan.prepare_serve_params(weights,
+                                                  int8_gates=int8_gates)
+        with pytest.raises(ValueError, match="int8_gates"):
+            serve_scan.serve_scan(prepped, tail_constants(model), cfg,
+                                  frames, sig_mp.init_carry(weights))
 
 
 def test_tail_wrapper_has_no_other_path():
