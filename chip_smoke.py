@@ -36,9 +36,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
    against 256, timed per launch beside the plain version in a CUDA graph;
    on the mixed chunk, kernel and plain version frame by frame from one
    carry, held within ``STEP_BOUNDS`` beside controls with another
-   arithmetic that must fall outside them; and the carried states of the
+   arithmetic that must fall outside them; the carried states of the
    two chained runs frame by frame, per stack, beside the plain version on
-   the card against the plain version on the CPU.
+   the card against the plain version on the CPU; and one more launch per
+   mode and chunk with the kernel's timestamp buffer, printed as the
+   in-launch split of a frame (weight phases, barriers, tails), with the
+   plan's weight bytes per frame from shared memory and through the ring.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -588,14 +591,16 @@ def _stack_weights(s):
     return [s["w1"], *s["w_ih"], *s["w_hh"], s["w2"]]
 
 
-def _serve_work(prepped, frames, n_iu):
+def _serve_work(prepped, frames, n_iu, n_spec):
     r"""(bytes, f32 operations, bf16 operations, int8 operations) the serve
     function needs on a non-live chunk: every weight (in its mode's type),
     frame input and carry field read once, every output written once; six
-    stack evaluations per frame with rnn7/rnn8 twice, two tails, and
-    init_net on the ``n_iu`` frames where the IMU updater fires. Products
-    with bf16 or int8 weights count at their type's rate, the gate
-    arithmetic, the quantization and the tails at the f32 rate."""
+    stack evaluations per frame, and on the ``n_spec`` frames where the
+    refeed may fire (c <= lo) the speculative rnn7/rnn8 and tail as well;
+    one final tail per frame, and init_net on the ``n_iu`` frames where the
+    IMU updater fires. Products with bf16 or int8 weights count at their
+    type's rate, the gate arithmetic, the quantization and the tails at the
+    f32 rate."""
     T = len(frames["conf"])
     mode = prepped["mode"]
     n_bytes, f32, bf16, int8 = 0, 0, 0, 0
@@ -603,7 +608,7 @@ def _serve_work(prepped, frames, n_iu):
         H, n_in, n_out = s["H"], s["in"], s["out"]
         n_bytes += _nbytes(*_stack_weights(s), s["b1"], *s["bias"], s["b2"],
                            *s.get("w_ih_s", ()), *s.get("w_hh_s", ()))
-        reps = T * (2 if name in ("rnn7", "rnn8") else 1)
+        reps = T + (n_spec if name in ("rnn7", "rnn8") else 0)
         dense = 2 * (H * n_in + n_out * H)
         gates = 2 * 2 * 4 * H * 2 * H
         f32 += reps * 2 * 10 * H
@@ -618,7 +623,7 @@ def _serve_work(prepped, frames, n_iu):
     for w, b in prepped["init"]:
         n_bytes += _nbytes(w, b)
         f32 += n_iu * 2 * w.numel()
-    f32 += T * 2 * (8000 + 33 * 24 * 24)
+    f32 += (T + n_spec) * (8000 + 33 * 24 * 24)
     # frame inputs (in2, raw72, keypoints twice, Rcr, c, k, flags, first
     # tran, gravity), outputs (pose, tran, contact), carry in and out
     n_frame = T * (72 + 72 + 99 + 99 + 9 + 1 + 1 + 2 + 3 + 3)
@@ -626,6 +631,30 @@ def _serve_work(prepped, frames, n_iu):
     n_carry = 2 * sum(2 * 2 * s["H"] for s in prepped["stacks"].values()) \
         + 2 * (6 + 3 + 33 + 99 + 4)
     return n_bytes + 4 * (n_frame + n_out + n_carry), f32, bf16, int8
+
+
+def _serve_bytes(S, prepped, dev, conf, lo):
+    r"""Weight bytes a frame of a non-live chunk reads, on average, from
+    the runs resident in shared memory and through the ring (from L2 or
+    HBM: the card's counters are not read here), as the kernel's plan
+    places them; and the size of the streamed set, which could stay in the
+    50 MB L2 only if it is smaller. rnn7/rnn8 count twice on the frames
+    where the refeed may fire."""
+    plan = S._device_plan(prepped, dev)[0]
+    spec = float(np.mean(np.asarray(conf) <= np.float32(lo)))
+    res = stream = streamed_set = 0
+    for si, name in enumerate(S._STACKS):
+        st = prepped["stacks"][name]
+        rec = st["packed"][2]
+        uses = 1 + spec if name in ("rnn7", "rnn8") else 1
+        for k in range(4):
+            b = (st["out"] if k == 3 else st["H"]) * rec[k]
+            if plan["resident"][si][k]:
+                res += uses * b
+            else:
+                stream += uses * b
+                streamed_set += b
+    return res, stream, streamed_set, plan
 
 
 def _stream_ms(prepped, T):
@@ -854,9 +883,153 @@ def _serve_divergence(S, mode, p, prepped, consts, cfg, frames, carry,
              bounds=None)
 
 
+# The serve kernel's in-launch timestamps (``serve_scan(...,
+# timestamps=...)``): per frame, ``TS_SLOTS`` values of %globaltimer (ns)
+# written by block 0's thread 0, 0 where nothing was stamped. Slot 0: the
+# frame's start; 1 + 2p and 2 + 2p: arrival at and departure from the grid
+# barrier after weight phase p (p = 4 g + k: group g of _SPLIT_GROUPS, kind
+# k of _SPLIT_KINDS); 33/34 the speculative tail (with the synthetic
+# keypoints) begins/ends, 35/36 its barrier; 37/38 the final tail (with the
+# carry) begins/ends, 39/40 the frame's last barrier; 41..44 the IMU
+# updater's two barriers; 48/49 and 52/53 inside phases 1 and 13, once the
+# inputs are in shared memory and after the records (_PROBES). On a frame
+# where the refeed cannot fire (c > lo) groups 1 and 2 do not run: rnn4
+# runs in group 0 and rnn3 in group 3 (the bracketed stacks). Slots 45..47
+# hold byte counts, not times (_BYTE_SLOTS): block 0's bytes of ring pieces
+# started before phase 1's first piece, before phase 1 opened, and after its
+# last piece.
+_BYTE_SLOTS = (45, 46, 47)
+_SPLIT_GROUPS = ("rnn2 [+ rnn4]", "rnn3 + speculative heads", "rnn4",
+                 "final heads + rnn6 [+ rnn3]")
+_SPLIT_KINDS = ("linear1", "layer 0", "layer 1", "linear2")
+_PROBES = ("inputs", "records")
+
+
+def _split_frame(row):
+    r"""One frame's stamps as ``{part: ns}``: each interval between two
+    consecutive stamps goes to the part that its closing stamp ends. Slots
+    48.. (where the kernel has them) probe phases 1 and 13 inside."""
+    ev = sorted((int(v), k) for k, v in enumerate(row)
+                if v and k not in _BYTE_SLOTS)
+    parts = {"frame": ev[-1][0] - ev[0][0], "barriers": 0}
+    for (t0, _), (t1, k) in zip(ev, ev[1:]):
+        if k >= 48:
+            key = f"in phase {1 if k < 52 else 13}: {_PROBES[(k - 48) % 4]}"
+            parts[key] = parts.get(key, 0) + t1 - t0
+            part = "phase " + _SPLIT_GROUPS[0 if k < 52 else 3]
+            parts["kind layer 0"] = parts.get("kind layer 0", 0) + t1 - t0
+        elif 1 <= k <= 32 and k % 2 == 1:
+            part = "phase " + _SPLIT_GROUPS[(k - 1) // 8]
+            kind = "kind " + _SPLIT_KINDS[((k - 1) // 2) % 4]
+            parts[kind] = parts.get(kind, 0) + t1 - t0
+        elif k in range(2, 33, 2) or k in (36, 40, 42, 44):
+            part = "barriers"
+            parts["n_barriers"] = parts.get("n_barriers", 0) + 1
+        elif k == 34:
+            part = "speculative tail"
+        elif k == 38:
+            part = "final tail"
+        else:
+            part = "other"
+        parts[part] = parts.get(part, 0) + t1 - t0
+    return parts
+
+
+def serve_split(S, prepped, consts, cfg, frames, carry, what):
+    r"""One launch of the serve kernel with its timestamp buffer; prints
+    the per-frame median of each part of a frame (weight phases by group and
+    by kind, barriers, the two tails) in microseconds and as a share of the
+    frame, and returns those medians."""
+    import torch
+    T = len(frames["conf"])
+    ts = torch.zeros((T, S.TS_SLOTS), dtype=torch.int64,
+                     device=frames["j2dc"].device)
+    S.serve_scan(prepped, consts, cfg, frames, carry, timestamps=ts)
+    torch.cuda.synchronize()
+    rows = [_split_frame(r) for r in ts.cpu().tolist()]
+    _require(all(r["frame"] > 0 for r in rows),
+             f"{what}: a frame without timestamps")
+    keys = sorted({k for r in rows for k in r}, key=lambda k: (
+        k != "frame", k.startswith("kind"), k))
+    med = {k: float(np.median([r.get(k, 0) for r in rows])) for k in keys}
+    share = {k: float(np.median([r.get(k, 0) / r["frame"] for r in rows]))
+             for k in keys if k not in ("frame", "n_barriers")}
+    print(f"[serve_scan] {what}, in-launch split (block 0's %globaltimer, "
+          f"median over {T} frames): frame {med['frame'] / 1e3:.2f} us "
+          f"(mean {np.mean([r['frame'] for r in rows]) / 1e3:.2f}), "
+          f"{med.get('n_barriers', 0):.0f} barriers; " + ", ".join(
+              f"{k} {med[k] / 1e3:.2f} us ({100 * share[k]:.1f}%)"
+              for k in keys if k in share), flush=True)
+    _phase1_stream(S, prepped, cfg, frames, ts.cpu().numpy(), what)
+    return med
+
+
+def _phase1_stream(S, prepped, cfg, frames, ts, what):
+    r"""Phase 1's stream in block 0 on the frames where the refeed cannot
+    fire (rnn2's and rnn4's layer 0), from the byte slots: its bytes, those
+    started before the phase opened (the ring may have held them already),
+    and the rate over the grid between the phase's opening and its barrier,
+    counting every byte (an upper bound) and only the bytes started after
+    the opening (a lower bound), as if every block streamed block 0's
+    bytes."""
+    nb = S._device_plan(prepped, frames["j2dc"].device)[0]["blocks"]
+    lo = np.float32(cfg.conf_range[0])
+    rows = [r for r, c in zip(ts, frames["c"].cpu().numpy())
+            if c > lo and r[47] and r[2] and r[3]]
+    if not rows:
+        return
+    total = np.array([r[47] - r[45] for r in rows], np.float64)
+    before = np.clip([r[46] - r[45] for r in rows], 0, total)
+    dt = np.array([r[3] - r[2] for r in rows], np.float64)
+    print(f"[serve_scan] {what}, phase 1 in block 0 on the {len(rows)} "
+          f"frames with c > lo (median): {np.median(total) / 1e3:.1f} KB, "
+          f"{np.median(before) / 1e3:.1f} KB of it started before the phase "
+          f"opened, {np.median(dt) / 1e3:.2f} us from its opening to its "
+          f"barrier: {np.median((total - before) * nb / dt) / 1e3:.2f} TB/s "
+          f"over the {nb} blocks counting only the bytes started after the "
+          f"opening, {np.median(total * nb / dt) / 1e3:.2f} TB/s counting "
+          f"every byte", flush=True)
+
+
+def _serve_chunk(label, seed, T, mode_cfg, scan_p, model, dev):
+    r"""(config, confidence, frames, carry) of one phase-5 chunk: ``mixed``
+    or ``live`` confidence from ``seed``, the carry after the first frame;
+    the IMU updater fires on the first confident frame."""
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+    cfg = mode_cfg if label == "mixed" else dataclasses.replace(
+        SigMPConfig.live_mode(), int8_compute=mode_cfg.int8_compute)
+    conf = _mixed(T, seed)
+    conf[:4] = 0.2
+    frames = sig_mp._sequence_frames(
+        *_stream_inputs(seed, conf), np.zeros(3, np.float32), True, None,
+        dev)
+    carry = sig_mp.prescan_first_frame(
+        scan_p, model, sig_mp.init_carry(scan_p),
+        sig_mp._frame_at(frames, 0), cfg.int8_compute)
+    return cfg, conf, frames, carry
+
+
+def serve_split_modes(params, model, dev):
+    r"""Only the in-launch split of the serve kernel, in each mode, on the
+    mixed and the live chunk of phase 5 (``chip_ab.py --split``)."""
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import serve_scan as S
+    from robustcap_tpu_torch.ops.geometry_tail import tail_constants
+    consts = tail_constants(model)
+    for mode, p, mode_cfg in _serve_modes(params):
+        prepped = S.prepare_serve_params(p, int8_gates=mode_cfg.int8_compute)
+        scan_p = sig_mp.prepare_scan_params(p, mode_cfg.int8_compute)
+        for label, seed in (("mixed", 6), ("live", 7)):
+            cfg, _, frames, carry = _serve_chunk(label, seed, 256, mode_cfg,
+                                                 scan_p, model, dev)
+            S.serve_scan(prepped, consts, cfg, frames, carry)   # warm-up
+            serve_split(S, prepped, consts, cfg, frames, carry,
+                        f"{mode} {label} T=256")
+
+
 def check_serve(params, model, dev):
     import torch
-    from robustcap_tpu_torch.config import SigMPConfig
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.ops import serve_scan as S
     from robustcap_tpu_torch.ops.geometry_tail import tail_constants
@@ -868,19 +1041,9 @@ def check_serve(params, model, dev):
         _require(prepped["mode"] == mode, f"prepared {prepped['mode']}, "
                  f"expected {mode}")
         scan_p = sig_mp.prepare_scan_params(p, mode_cfg.int8_compute)
-        for label, cfg, seed in (
-                ("mixed", mode_cfg, 6),
-                ("live", dataclasses.replace(
-                    SigMPConfig.live_mode(),
-                    int8_compute=mode_cfg.int8_compute), 7)):
-            conf = _mixed(T, seed)
-            conf[:4] = 0.2   # the IMU updater fires on the first confident
-            frames = sig_mp._sequence_frames(
-                *_stream_inputs(seed, conf), np.zeros(3, np.float32), True,
-                None, dev)
-            carry = sig_mp.prescan_first_frame(
-                scan_p, model, sig_mp.init_carry(scan_p),
-                sig_mp._frame_at(frames, 0), cfg.int8_compute)
+        for label, seed in (("mixed", 6), ("live", 7)):
+            cfg, conf, frames, carry = _serve_chunk(label, seed, T, mode_cfg,
+                                                    scan_p, model, dev)
             got = S.serve_scan(prepped, consts, cfg, frames, carry)
             want = S.serve_scan_plain(prepped, consts, cfg, frames, carry)
             first = {k: v[:100] for k, v in frames.items()}
@@ -919,7 +1082,8 @@ def check_serve(params, model, dev):
             # a fresh carry: the IMU updater fires on the first confident
             # frame
             n_iu = int((conf >= np.float32(cfg.conf_range[1])).any())
-            n_bytes, *n_ops = _serve_work(prepped, frames, n_iu)
+            n_spec = int((conf <= np.float32(cfg.conf_range[0])).sum())
+            n_bytes, *n_ops = _serve_work(prepped, frames, n_iu, n_spec)
             bound, by = _bound_ms(n_bytes, *n_ops)
             stream_ms = _stream_ms(prepped, T)
             print(f"[serve_scan] {mode} {label} T={T}: kernel vs plain "
@@ -932,7 +1096,20 @@ def check_serve(params, model, dev):
                   f"{n_ops[0]}, bf16 {n_ops[1]}, int8 {n_ops[2]}); weights "
                   f"streamed once per frame would take {stream_ms:.3f} ms",
                   flush=True)
+            serve_split(S, prepped, consts, cfg, frames, carry, name)
             if label == "mixed":
+                res_b, str_b, str_set, plan = _serve_bytes(
+                    S, prepped, dev, conf, cfg.conf_range[0])
+                lay = plan["layout"]
+                print(f"[serve_scan] {mode} plan: {plan['blocks']} blocks, "
+                      f"{lay['total']} bytes of shared memory each: ring "
+                      f"{lay['ring_bytes']}, resident {plan['res_bytes']}; "
+                      f"weights per frame of the mixed chunk ({n_spec} of "
+                      f"{T} frames with the speculative heads): "
+                      f"{res_b / 1e6:.2f} MB from shared memory, "
+                      f"{str_b / 1e6:.2f} MB streamed through the ring "
+                      f"(a streamed set of {str_set / 1e6:.2f} MB against the "
+                      f"50 MB L2)", flush=True)
                 rows[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   library_ms=None, bound_ms=bound,
                                   bound_by=by)

@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from ..device import tree_map
+from ..device import resolve_device, tree_map
 
 __all__ = [
     "init_linear", "init_lstm_layer", "init_rnn_params", "init_state",
@@ -338,10 +338,13 @@ def init_net_apply(params, first_label):
     return h, c
 
 
-def rnn_params_from_torch(state_dict, prefix: str = "", device="cpu"):
+def rnn_params_from_torch(state_dict, prefix: str = "", device="cuda"):
     r"""One reference RNN module from a torch state_dict (numpy or tensor
     values): ``{prefix}linear1.weight``, ``{prefix}rnn.weight_ih_l{k}``, ...,
-    optionally ``{prefix}init_net.{0,2,4}.weight``."""
+    optionally ``{prefix}init_net.{0,2,4}.weight``; on ``device``, which
+    raises without a card unless it is ``"cpu"`` (``resolve_device``)."""
+    device = resolve_device(device)
+
     def get(name):
         v = state_dict[prefix + name]
         if isinstance(v, torch.Tensor):

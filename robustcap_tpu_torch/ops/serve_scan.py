@@ -18,6 +18,14 @@ rounded to bf16 before a product and every sum, gate and state kept in
 float32; and int8 gate matrices with per-row scales under
 ``cfg.int8_compute``, whose activations are quantized per row as the XLA
 ``int8_compute`` step does, with linear1/linear2 in bf16.
+
+It reads them from a packed copy (:func:`pack_stack`): per stack and phase
+kind (linear1, layer 0, layer 1, linear2) one run of 16-byte-aligned
+records, a unit's eight gate rows, its four biases and, in int8 mode, its
+eight row scales side by side. :func:`serve_plan` gives every block of the
+launch a fixed, balanced run of records per phase kind, decides which runs
+stay in shared memory for the whole launch, and lays out the rest of shared
+memory, with the ring the other runs stream through.
 """
 
 from __future__ import annotations
@@ -34,23 +42,259 @@ from ..nn.rnn import (_dot_i8, _is_qtensor, dequantize_params,
                       quantize_tensor)
 from . import _build
 
-__all__ = ["LAUNCHES", "MODES", "prepare_serve_params", "check_serve_cfg",
+__all__ = ["LAUNCHES", "MODES", "TS_SLOTS", "KINDS", "prepare_serve_params",
+           "pack_stack", "unpack_stack", "serve_plan", "check_serve_cfg",
            "serve_scan_plain", "serve_scan"]
 
 # kernel launches so far (one per chunk on CUDA tensors)
 LAUNCHES = 0
+
+# in-launch timestamps per frame (``serve_scan(..., timestamps=)``)
+TS_SLOTS = 56
 
 # weight modes, in the order of the kernel's mode argument
 MODES = ("f32", "bf16", "int8")
 
 # stack order of the kernel's operands
 _STACKS = ("rnn2", "rnn3", "rnn4", "rnn6", "rnn7", "rnn8")
-_TAIL_F = 530   # f32 outputs of one tail evaluation (csrc/serve_scan.cu)
 _SYN = 267      # synthetic keypoints: 99 + 99 + 69
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 _F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
+
+# phase kinds of a stack, in the order of the packed copy
+KINDS = ("linear1", "layer0", "layer1", "linear2")
+
+# The kernel's block (csrc/serve_scan.cu): threads, mbarriers of the ring,
+# floats of the linear1 input area, bytes of the block's state and of the
+# tail's scratch and constants, floats of the tail's staging
+_THREADS = 512
+_WARPS = _THREADS // 32
+_RING_BARS = 16
+_XIN = 528
+_STATE = 1152
+_TAIL_SMEM = 4352
+_TAIL_CONST = 4240   # the tail's body-model constants
+_TAIL_STAGE = 868    # floats: a tail's inputs, carry and outputs
+# the least ring a mode keeps before runs stay resident (f32 keeps none)
+_RING_MIN = {"f32": None, "bf16": 160 * 1024, "int8": 96 * 1024}
+# pieces the ring is cut into, how many are in flight at once: on the H100
+# every further piece cost more than the bytes it kept in flight saved
+_PIECES = 2
+# residency, first come first served: the heads run twice on an occluded
+# frame, rnn2 and rnn3 once
+_RESIDENT_ORDER = ("rnn7", "rnn8", "rnn2", "rnn3")
+# stacks whose extra records rotate on from one to the next, so that the
+# phases of both kinds of frame balance: {rnn2}, {rnn3, rnn7, rnn8}, {rnn4},
+# {rnn7, rnn8, rnn6} where the refeed may fire, {rnn2, rnn4} and
+# {rnn7, rnn8, rnn6, rnn3} where it cannot
+_BALANCE = (("rnn2", "rnn4"), ("rnn3", "rnn7", "rnn8", "rnn6"))
+
+
+def _padded(n, itemsize):
+    r"""``n`` rounded up to whole 16-byte chunks of ``itemsize`` items."""
+    per = 16 // itemsize
+    return -(-n // per) * per
+
+
+def _row_bytes(w):
+    r"""Rows of ``w [n, m]`` zero-padded to whole 16-byte chunks, as bytes
+    ``[n, bytes per row]``."""
+    n, m = w.shape
+    out = torch.zeros((n, _padded(m, w.element_size())), dtype=w.dtype,
+                      device=w.device)
+    out[:, :m] = w
+    return out.view(torch.uint8)
+
+
+def _f32_bytes(t):
+    return t.to(_F32).contiguous().view(torch.uint8)
+
+
+def _dense_records(w, b):
+    r"""Rows of ``w`` with their bias after each (16 bytes: the bias, then
+    zeros)."""
+    tail = torch.zeros((w.shape[0], 4), dtype=_F32, device=w.device)
+    tail[:, 0] = b
+    return torch.cat([_row_bytes(w), tail.view(torch.uint8)], 1)
+
+
+def pack_stack(s):
+    r"""The packed copy of one stack of :func:`prepare_serve_params`:
+    ``(bytes, offsets, record bytes, row lengths)``, each of the last three
+    per kind of :data:`KINDS`. A linear1 or linear2 record is one weight
+    row and its bias (f32, padded to 16 bytes); a layer record is unit j's
+    four ``w_ih`` gate rows (i, f, g, o), its four ``w_hh`` gate rows, its
+    four summed biases (f32) and, in int8 mode, the eight rows' scales
+    (f32). Rows are zero-padded to whole 16-byte
+    chunks (the row length in items), so every record, and every block's run
+    of consecutive records, is 16-byte aligned."""
+    H = s["H"]
+    runs = [_dense_records(s["w1"], s["b1"])]
+    for l in range(2):
+        wih, whh = s["w_ih"][l], s["w_hh"][l]
+        hp = _padded(H, wih.element_size())
+        rows = torch.zeros((H, 2, 4, hp), dtype=wih.dtype, device=wih.device)
+        rows[:, 0, :, :H] = wih.view(4, H, H).transpose(0, 1)
+        rows[:, 1, :, :H] = whh.view(4, H, H).transpose(0, 1)
+        parts = [rows.reshape(H, -1).view(torch.uint8),
+                 _f32_bytes(s["bias"][l].view(4, H).T)]
+        if "w_ih_s" in s:
+            parts.append(_f32_bytes(torch.cat(
+                [s["w_ih_s"][l].view(4, H).T, s["w_hh_s"][l].view(4, H).T],
+                1)))
+        runs.append(torch.cat(parts, 1))
+    runs.append(_dense_records(s["w2"], s["b2"]))
+    offsets, rec, lens, off = [], [], [], 0
+    for k, r in enumerate(runs):
+        offsets.append(off)
+        rec.append(int(r.shape[1]))
+        off += r.numel()
+        w = s["w1"] if k == 0 else s["w2"] if k == 3 else s["w_hh"][0]
+        lens.append(_padded(w.shape[1], w.element_size()))
+    return (torch.cat([r.reshape(-1) for r in runs]), offsets, rec, lens)
+
+
+def unpack_stack(s):
+    r"""The torch-layout weights of a stack back from its packed copy
+    (``s["packed"]``): ``{"w1", "b1", "w_ih", "w_hh", "bias", "w2", "b2"}``
+    and in int8 mode ``"w_ih_s"``/``"w_hh_s"``; the inverse of
+    :func:`pack_stack`."""
+    H, n_in, n_out = s["H"], s["in"], s["out"]
+    buf, offsets, rec, lens = s["packed"]
+
+    def run(k, n):
+        return buf[offsets[k]:offsets[k] + n * rec[k]].view(n, rec[k])
+
+    def rows(k, n, m, dtype):
+        r = run(k, n)
+        w = r[:, :rec[k] - 16].contiguous().view(dtype)[:, :m]
+        return w, r[:, rec[k] - 16:].contiguous().view(_F32)[:, 0]
+
+    gate_t = s["w_hh"][0].dtype
+    hp = lens[1]
+    es = torch.tensor([], dtype=gate_t).element_size()
+    out = {"w_ih": [], "w_hh": [], "bias": [], "w_ih_s": [], "w_hh_s": []}
+    out["w1"], out["b1"] = rows(0, H, n_in, s["w1"].dtype)
+    out["w2"], out["b2"] = rows(3, n_out, H, s["w2"].dtype)
+    for l in (1, 2):
+        r = run(l, H)
+        g = r[:, :8 * hp * es].contiguous().view(gate_t).view(H, 2, 4, hp)
+        out["w_ih"].append(g[:, 0, :, :H].transpose(0, 1).reshape(4 * H, H))
+        out["w_hh"].append(g[:, 1, :, :H].transpose(0, 1).reshape(4 * H, H))
+        tail = r[:, 8 * hp * es:].contiguous().view(_F32)
+        out["bias"].append(tail[:, :4].T.reshape(4 * H))
+        if tail.shape[1] > 4:
+            out["w_ih_s"].append(tail[:, 4:8].T.reshape(4 * H))
+            out["w_hh_s"].append(tail[:, 8:12].T.reshape(4 * H))
+    if not out["w_ih_s"]:
+        del out["w_ih_s"], out["w_hh_s"]
+    return out
+
+
+def serve_plan(prepped, n_sms, smem_bytes):
+    r"""The kernel's plan of one weight set on a grid of ``n_sms`` blocks
+    with ``smem_bytes`` of dynamic shared memory each; the same plan serves
+    every frame and chunk.
+
+    * ``starts`` ``int32 [6, 4, n_sms + 1]``: block b owns records
+      ``[starts[s, k, b], starts[s, k, b + 1])`` of stack s (order of the
+      kernel's operands) and kind k (:data:`KINDS`): units of a layer, rows
+      of linear1/linear2. Each kind's records are split as evenly as they
+      go, the blocks with one more record rotating on through the stacks
+      that share a phase (``_BALANCE``), so that each phase balances.
+    * ``resident`` ``[6][4]``: runs copied into shared memory once per
+      launch and kept there: in the order of ``_RESIDENT_ORDER``, while the
+      ring keeps at least the mode's ``_RING_MIN`` bytes (float32 keeps
+      nothing resident). ``res_off``: each run's byte offset in the
+      resident area, which holds the largest block's run.
+    * ``cap``: records per piece of a streamed run (a ``_PIECES``-th of the
+      ring, or one record), so that that many pieces are in flight.
+    * ``layout``: byte offsets of the shared-memory areas, the ring last.
+
+    Raises ``ValueError`` when the ring cannot hold two of the largest
+    streamed records."""
+    mode, st = prepped["mode"], prepped["stacks"]
+    nb = int(n_sms)
+    starts = np.zeros((len(_STACKS), 4, nb + 1), np.int32)
+    for k in range(4):
+        for chain in _BALANCE:
+            rot = 0
+            for name in chain:
+                si = _STACKS.index(name)
+                n = st[name]["out"] if k == 3 else st[name]["H"]
+                q, r = divmod(n, nb)
+                counts = q + (((np.arange(nb) - rot) % nb) < r)
+                starts[si, k, 1:] = np.cumsum(counts)
+                rot = (rot + r) % nb
+    rec = [st[n]["packed"][2] for n in _STACKS]
+    most = (starts[:, :, 1:] - starts[:, :, :-1]).max(axis=2)
+    mc = [int(most[si, 1:3].max()) for si in range(len(_STACKS))]
+    run_bytes = [[int(most[si, k]) * rec[si][k] for k in range(4)]
+                 for si in range(len(_STACKS))]
+
+    def align(n, a=16):
+        return -(-n // a) * a
+
+    # per phase, each job's [x ; h] as floats (and int8: quantized bytes),
+    # padded to 16 items; init_net's inputs and a tail's staging use the
+    # same area. The block's own units' committed c and h, both layers of
+    # every stack, have an area of their own.
+    hpa = {n: _padded(st[n]["H"], 1) for n in _STACKS}
+    floats = {n: 2 * hpa[n] for n in _STACKS}
+    groups = (("rnn2",), ("rnn3", "rnn7", "rnn8"), ("rnn4",),
+              ("rnn7", "rnn8", "rnn6"), ("rnn2", "rnn4"),
+              ("rnn7", "rnn8", "rnn6", "rnn3"))
+    act = max(max(sum(floats[n] for n in g) for g in groups),
+              *(int(w.shape[0]) for w, _ in (prepped["init"] or [])[:2]),
+              st["rnn2"]["out"], _TAIL_STAGE)
+    actq = max(2 * sum(hpa[n] for n in g) for g in groups)
+    layout, off = {}, 0
+    for name, size, a in (
+            ("bars", 8 * (_RING_BARS + 1), 16),
+            ("state", _STATE, 16),
+            ("xin", 4 * _XIN, 16),
+            ("act", 4 * act, 16),
+            ("actq", actq if mode == "int8" else 0, 16),
+            ("parts", 2 * 4 * 20 * _WARPS, 16),
+            ("red", 4 * (8 * _WARPS + 4), 16),
+            ("own", 4 * sum(4 * _padded(m, 4) for m in mc), 16),
+            ("tail", _TAIL_SMEM, 16),
+            ("tconst", _TAIL_CONST, 16)):
+        off = align(off, a)
+        layout[name] = off
+        off += size
+    layout["res"] = off = align(off, 128)
+    ring_min = _RING_MIN[mode]
+    resident = [[False] * 4 for _ in _STACKS]
+    res_off = [[0] * 4 for _ in _STACKS]
+    res = 0
+    if ring_min is not None:
+        for name in _RESIDENT_ORDER:
+            si = _STACKS.index(name)
+            for k in (1, 2, 0, 3):
+                b = run_bytes[si][k]
+                if off + res + b + ring_min <= smem_bytes:
+                    resident[si][k], res_off[si][k] = True, res
+                    res += b
+    layout["ring"] = off = align(off + res, 128)
+    ring = (smem_bytes - off) // 16 * 16
+    if max(st[n]["H"] for n in _STACKS) > 3 * _THREADS:
+        raise ValueError(f"serve plan: the kernel takes hidden sizes up to "
+                         f"{3 * _THREADS}")
+    largest = max([rec[si][k] for si in range(len(_STACKS)) for k in range(4)
+                   if not resident[si][k]], default=0)
+    if ring < 2 * largest:
+        raise ValueError(f"serve plan: a ring of {ring} bytes cannot hold two "
+                         f"records of {largest} bytes")
+    cap = [[max(1, (ring // _PIECES) // rec[si][k]) for k in range(4)]
+           for si in range(len(_STACKS))]
+    layout["ring_bytes"] = ring
+    layout["total"] = off + ring
+    return {"blocks": nb, "starts": starts, "mc": mc, "resident": resident,
+            "res_off": res_off, "res_bytes": res, "cap": cap, "rec": rec,
+            "layout": layout}
 
 
 def _gate_record(w):
@@ -76,9 +320,10 @@ def prepare_serve_params(params, dtype=None, int8_gates=False):
 
     ``"params"`` holds the same tensors as a parameter tree for the plain
     version: the summed gate bias under ``b_ih`` and zeros under
-    ``b_hh``. Raises ``ValueError`` for another dtype, for stacks that are
-    not 2 layers deep, or unless rnn2/3/7/8 share one hidden size, as the
-    JAX kernel requires."""
+    ``b_hh``. Each stack also holds the kernel's packed copy of its weights
+    (``"packed"``, :func:`pack_stack`). Raises ``ValueError`` for another
+    dtype, for stacks that are not 2 layers deep, or unless rnn2/3/7/8
+    share one hidden size, as the JAX kernel requires."""
     if int8_gates:
         mode, dtype = "int8", _BF16
     else:
@@ -118,6 +363,7 @@ def prepare_serve_params(params, dtype=None, int8_gates=False):
             gates = [{k: s[k][i] for k in ("w_ih", "w_hh")}
                      for i in range(2)]
         s["H"] = int(s["w_hh"][0].shape[1])
+        s["packed"] = pack_stack(s)
         stacks[name] = s
         plain[name] = {
             "linear1": {"w": w1, "b": s["b1"]},
@@ -241,7 +487,27 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+        lib.serve_scan_device_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.serve_scan_device_info.restype = ctypes.c_int
+    return lib
+
+
+def _device_plan(prepped, dev):
+    r"""The plan of ``prepped`` for the card ``dev`` (one block per SM, all
+    of a block's dynamic shared memory) and its block table on the card,
+    made once and kept in ``prepped``."""
+    key = ("plan", dev.index)
+    if key not in prepped:
+        info = np.zeros(2, np.int32)
+        with torch.cuda.device(dev):
+            err = _lib().serve_scan_device_info(MODES.index(prepped["mode"]),
+                                                info.ctypes.data)
+        if err != 0:
+            raise RuntimeError(f"serve_scan: reading the card's attributes "
+                               f"failed: CUDA error {err}")
+        plan = serve_plan(prepped, int(info[0]), int(info[1]))
+        prepped[key] = (plan, torch.as_tensor(plan["starts"]).to(dev))
+    return prepped[key]
 
 
 def _frame_operands(cfg, frames):
@@ -278,7 +544,7 @@ def _frame_operands(cfg, frames):
     }
 
 
-def _launch(prepped, consts, cfg, frames, carry):
+def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
     global LAUNCHES
     dev = frames["j2dc"].device
     f32, i32 = torch.float32, torch.int32
@@ -301,34 +567,28 @@ def _launch(prepped, consts, cfg, frames, carry):
         return t.data_ptr()
 
     mode = prepped["mode"]
-    dense_t = _F32 if mode == "f32" else _BF16
-    gate_t = {"f32": _F32, "bf16": _BF16, "int8": _I8}[mode]
+    plan, table = _device_plan(prepped, dev)
     ptrs, ints = [], [MODES.index(mode)]
     states, work = carry["states"], {}
-    for name in _STACKS:
+    for si, name in enumerate(_STACKS):
         s = prepped["stacks"][name]
         H, n_out = s["H"], s["out"]
+        buf, offsets, rec, lens = s["packed"]
         h0, c0 = states[name]
         hs = torch.zeros((2, 2, H), dtype=f32, device=dev)  # layer, slot
         hs[:, 0] = h0
         cs = c0.to(f32).clone().contiguous()
         work[name] = (hs, cs)
-        ptrs += [ptr(s["w1"], dense_t, (H, s["in"])),
-                 ptr(s["b1"], shape=(H,))]
-        for l in range(2):
-            ptrs += [ptr(s["w_ih"][l], gate_t, (4 * H, H)),
-                     ptr(s["w_hh"][l], gate_t, (4 * H, H)),
-                     ptr(s["bias"][l], shape=(4 * H,))]
-            ptrs += ([ptr(s["w_ih_s"][l], shape=(4 * H,)),
-                      ptr(s["w_hh_s"][l], shape=(4 * H,))]
-                     if mode == "int8" else [0, 0])
-        ptrs += [ptr(s["w2"], dense_t, (n_out, H)),
-                 ptr(s["b2"], shape=(n_out,)),
-                 ptr(hs), ptr(cs, shape=(2, H)),
+        base = ptr(buf, torch.uint8)
+        ptrs += [base + o for o in offsets]
+        ptrs += [ptr(hs), ptr(cs, shape=(2, H)),
                  ptr(torch.empty(H, dtype=f32, device=dev)),
                  ptr(torch.empty((2, H), dtype=f32, device=dev)),
                  ptr(torch.zeros(n_out, dtype=f32, device=dev))]
-        ints += [s["in"], H, n_out]
+        ints += [s["in"], H, n_out, plan["mc"][si]]
+        for k in range(4):
+            ints += [rec[k], lens[k], int(plan["resident"][si][k]),
+                     plan["res_off"][si][k], plan["cap"][si][k]]
 
     fo = _frame_operands(cfg, frames)
     for key, width in (("in2", 72), ("raw72", 72), ("j2n", 99), ("j2r", 99),
@@ -383,16 +643,19 @@ def _launch(prepped, consts, cfg, frames, carry):
     pose = torch.empty((T, 24, 3, 3), dtype=f32, device=dev)
     tran = torch.empty((T, 3), dtype=f32, device=dev)
     contact = torch.empty((T, 2), dtype=f32, device=dev)
-    tail_f = torch.empty((2, _TAIL_F), dtype=f32, device=dev)
-    tail_i = torch.zeros((2, 2), dtype=i32, device=dev)
-    ptrs += [ptr(tail_f[0]), ptr(tail_f[1]), ptr(tail_i[0], i32),
-             ptr(tail_i[1], i32),
-             ptr(torch.empty(_SYN, dtype=f32, device=dev)),
+    ptrs += [ptr(torch.empty(_SYN, dtype=f32, device=dev)),
              ptr(torch.empty(max(1, init_n[0] + init_n[1]), dtype=f32,
                              device=dev)),
-             ptr(pose), ptr(tran), ptr(contact)]
+             ptr(pose), ptr(tran), ptr(contact),
+             ptr(table, i32, (len(_STACKS), 4, plan["blocks"] + 1)),
+             ptr(timestamps, torch.int64, (T, TS_SLOTS))]
+    layout = plan["layout"]
     ints += [T, int(use_imu), int(cfg.live), int(cfg.update_vision_freq),
-             int(cfg.use_flat_floor), int(blendshape), *init_n]
+             int(cfg.use_flat_floor), int(blendshape), *init_n,
+             plan["blocks"]]
+    ints += [layout[k] for k in ("bars", "state", "xin", "act", "actq",
+                                 "parts", "red", "own", "tail", "tconst",
+                                 "res", "ring", "ring_bytes", "total")]
     conf_lo, conf_hi = cfg.conf_range
     flts = [conf_lo, conf_hi, cfg.contact_threshold, cfg.distance_threshold,
             cfg.tran_filter_num, cfg.height_threshold]
@@ -401,8 +664,9 @@ def _launch(prepped, consts, cfg, frames, carry):
     i_arr = np.asarray(ints, dtype=np.int32)
     f_arr = np.asarray(flts, dtype=np.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(p_arr.ctypes.data, len(p_arr), i_arr.ctypes.data,
-                 len(i_arr), f_arr.ctypes.data, len(f_arr), stream)
+    err = _lib().serve_scan_launch(p_arr.ctypes.data, len(p_arr),
+                                   i_arr.ctypes.data, len(i_arr),
+                                   f_arr.ctypes.data, len(f_arr), stream)
     if err != 0:
         raise RuntimeError(f"serve_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -422,7 +686,7 @@ def _launch(prepped, consts, cfg, frames, carry):
     return pose, tran, contact, new_carry
 
 
-def serve_scan(prepped, consts, cfg, frames, carry):
+def serve_scan(prepped, consts, cfg, frames, carry, timestamps=None):
     r"""Run a chunk through the serving step: one kernel launch on CUDA
     tensors, the plain version on CPU tensors.
 
@@ -431,7 +695,12 @@ def serve_scan(prepped, consts, cfg, frames, carry):
     ``models.sig_mp._sequence_frames`` (the kernel reads the confidence
     ``c`` computed there and compares it in float32); ``carry`` the steady
     carry after ``prescan_first_frame``. Returns ``(pose [T,24,3,3],
-    tran [T,3], contact [T,2], new_carry)``."""
+    tran [T,3], contact [T,2], new_carry)``.
+
+    ``timestamps``, on the card only: an int64 ``[T, TS_SLOTS]`` tensor of
+    zeros that the kernel fills with block 0's ``%globaltimer`` (ns) at
+    fixed points of each frame (``chip_smoke.py``'s ``serve_split`` reads
+    them); ``None`` on the main path."""
     check_serve_cfg(cfg)
     dev = frames["j2dc"].device
     if dev.type not in ("cpu", "cuda"):
@@ -440,5 +709,7 @@ def serve_scan(prepped, consts, cfg, frames, carry):
         raise ValueError("cfg.int8_compute requires int8_gates prepped "
                          "params (and vice versa)")
     if dev.type == "cpu":
+        if timestamps is not None:
+            raise ValueError("timestamps come from the kernel on the card")
         return serve_scan_plain(prepped, consts, cfg, frames, carry)
-    return _launch(prepped, consts, cfg, frames, carry)
+    return _launch(prepped, consts, cfg, frames, carry, timestamps)

@@ -1,0 +1,13 @@
+// Host stand-in of cuda_bf16.h: the two conversions the kernels use,
+// round to nearest even as on the card.
+#pragma once
+#include <stdint.h>
+#include <string.h>
+struct __nv_bfloat16 { uint16_t x; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; memcpy(&f, &u, 4); return f; }
