@@ -9,8 +9,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
 1. build every kernel of ``robustcap_tpu_torch/csrc`` with ``nvcc`` (one
    process per source, all started together);
 2. the LSTM-scan kernel against its plain PyTorch version at the rnn2 and
-   rnn3 full-width shapes (T=256, and 100+156 chained against 256), timed
-   beside the plain version and ``torch.nn.LSTM`` (cuDNN) as a yardstick;
+   rnn3 full-width shapes (T=256, and 100+156 chained against 256), on the
+   stack prepared once (``prepare_lstm_scan``) as the main path runs it,
+   timed beside the plain version and ``torch.nn.LSTM`` (cuDNN) as a
+   yardstick; one more launch with the kernel's timestamp buffer, printed
+   as the in-launch split (pre-pass, steps with their barrier waits,
+   linear2) and the grid barriers a launch runs;
 3. the geometry-tail kernel against its plain version over 320 frames that
    cover every regime (confidence bands, ring append and snap, live
    throttle, no landmarks, pose blendshapes on and off), timed per launch;
@@ -134,23 +138,48 @@ def _require(ok, what):
 LSTM_BOUND = 1e-4   # f32 sums in another order, compounded through (h, c)
 
 
+def lstm_split(ts, T):
+    r"""One launch's timestamps (``lstm_scan.ts_slots``, block 0's
+    %globaltimer in ns) as microseconds: the pre-pass (linear1 and U0, each
+    with its barrier), when the resident weights had landed (from the
+    start), the steps (median of a step, of its work and of its barrier's
+    wait), linear2 and the launch."""
+    ts = np.asarray(ts, np.float64)
+    done, passed = ts[6:6 + 2 * (T + 1):2], ts[7:7 + 2 * (T + 1):2]
+    step = np.diff(np.concatenate([ts[5:6], passed]))
+    return {"prepass": (ts[4] - ts[0]) / 1e3,
+            "linear1": (ts[1] - ts[0]) / 1e3,
+            "u0": (ts[3] - ts[2]) / 1e3,
+            "weights_landed": (ts[5] - ts[0]) / 1e3,
+            "weights_wait": (ts[5] - ts[4]) / 1e3,
+            "step": float(np.median(step)) / 1e3,
+            "step_work": float(np.median(done - np.concatenate(
+                [ts[5:6], passed[:-1]]))) / 1e3,
+            "step_barrier": float(np.median(passed - done)) / 1e3,
+            "steps": (passed[-1] - ts[5]) / 1e3,
+            "linear2": (ts[8 + 2 * T] - passed[-1]) / 1e3,
+            "launch": (ts[8 + 2 * T] - ts[0]) / 1e3,
+            "barriers": 2 + (T + 1)}
+
+
 def check_lstm(params, dev, gen):
     import torch
-    from robustcap_tpu_torch.ops.lstm_scan import (rnn_scan_chunked,
-                                                   rnn_scan_plain)
+    from robustcap_tpu_torch.ops import lstm_scan as L
     rows = {}
     for name, n_in in (("rnn2", 72), ("rnn3", 141)):
         p = params[name]
+        ops = L.prepare_lstm_scan(p)   # as StreamingNet prepares it
         H = p["layers"][0]["w_hh"].shape[1]
         n_out = p["linear2"]["w"].shape[0]
         T = 256
         xs = torch.randn(T, n_in, generator=gen).to(dev)
         state = tuple((0.5 * torch.randn(2, H, generator=gen)).to(dev)
                       for _ in range(2))
-        ys, (h, c) = rnn_scan_chunked(p, xs, state)
-        ys_p, (h_p, c_p) = rnn_scan_plain(p, xs, state)
-        y1, st1 = rnn_scan_chunked(p, xs[:100], state)
-        y2, (h2, c2) = rnn_scan_chunked(p, xs[100:], st1)
+        ys, (h, c) = L.rnn_scan_chunked(ops, xs, state)
+        ys_p, (h_p, c_p) = L.rnn_scan_plain(p, xs, state)
+        y1, st1 = L.rnn_scan_chunked(ops, xs[:100], state)
+        y2, (h2, c2) = L.rnn_scan_chunked(ops, xs[100:], st1)
+        raw = L.rnn_scan_chunked(p, xs, state)
         torch.cuda.synchronize()
         err = max(_max_err(ys, ys_p), _max_err(h, h_p), _max_err(c, c_p))
         chain = max(_max_err(torch.cat([y1, y2]), ys), _max_err(h2, h),
@@ -163,11 +192,15 @@ def check_lstm(params, dev, gen):
                  f"lstm_scan {name}: 100+156 chained vs 256 differ by "
                  f"{chain:.3e} (the per-frame arithmetic does not depend on "
                  "where a chunk starts, so they must be equal)")
+        _require(all(torch.equal(a, b) for a, b in
+                     ((raw[0], ys), (raw[1][0], h), (raw[1][1], c))),
+                 f"lstm_scan {name}: raw params and prepare_lstm_scan give "
+                 "other bits")
 
-        ms = _time_ms(lambda: rnn_scan_chunked(p, xs, state), reps=20)
-        plain_ms = _time_graph_ms(lambda: rnn_scan_plain(p, xs, state),
+        ms = _time_ms(lambda: L.rnn_scan_chunked(ops, xs, state), reps=20)
+        plain_ms = _time_graph_ms(lambda: L.rnn_scan_plain(p, xs, state),
                                   reps=2)
-        plain_eager_ms = _time_ms(lambda: rnn_scan_plain(p, xs, state),
+        plain_eager_ms = _time_ms(lambda: L.rnn_scan_plain(p, xs, state),
                                   reps=2, warmup=1)
         # yardstick: cuDNN's 2-layer LSTM over the same chunk (the LSTM
         # layers only; linear1 is applied beforehand and linear2 not at all)
@@ -204,6 +237,26 @@ def check_lstm(params, dev, gen):
               f"({plain_eager_ms:.3f} ms issued eagerly), cuDNN nn.LSTM "
               f"{lib_ms:.4f} ms, bound "
               f"{bound:.5f} ms ({by})", flush=True)
+
+        # one more launch with the timestamp buffer: the in-launch split
+        ts = torch.zeros(L.ts_slots(T), dtype=torch.int64, device=dev)
+        L.rnn_scan_chunked(ops, xs, state, timestamps=ts)
+        torch.cuda.synchronize()
+        sp = lstm_split(ts.cpu().tolist(), T)
+        plan = L._device_plan(ops, dev)[0]
+        print(f"[lstm_scan] {name} T={T}, in-launch split (block 0's "
+              f"%globaltimer): launch {sp['launch']:.1f} us, "
+              f"{sp['barriers']} grid barriers; pre-pass {sp['prepass']:.1f} "
+              f"us (linear1 {sp['linear1']:.1f}, U0 {sp['u0']:.1f}); resident "
+              f"weights landed {sp['weights_landed']:.1f} us after the start "
+              f"(waited {sp['weights_wait']:.1f}); {T + 1} steps "
+              f"{sp['steps']:.1f} us, a step median {sp['step']:.2f} us = "
+              f"work {sp['step_work']:.2f} + barrier {sp['step_barrier']:.2f};"
+              f" linear2 {sp['linear2']:.1f} us; plan {plan['blocks']} blocks, "
+              f"{int(plan['resident'].max())} bytes of weights resident a "
+              f"block (copied once a launch), {plan['layout']['total']} bytes "
+              f"of shared memory", flush=True)
+        rows[name]["split"] = sp
     return rows
 
 
@@ -1171,7 +1224,8 @@ def main():
              replaces="robustcap_tpu/ops/pallas_lstm.py:166",
              launches=launches["lstm_scan"],
              max_abs_err=max(r["max_abs_err"] for r in lstm.values()),
-             **{k: v for k, v in lstm["rnn2"].items() if k != "max_abs_err"}),
+             **{k: v for k, v in lstm["rnn2"].items()
+                if k not in ("max_abs_err", "split")}),
         dict(name="geometry_tail", route="cuda",
              source="robustcap_tpu_torch/csrc/geometry_tail.cu",
              replaces="robustcap_tpu/ops/pallas_tail.py:468",

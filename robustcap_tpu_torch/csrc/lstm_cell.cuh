@@ -1,14 +1,7 @@
 // LSTM device code shared by the LSTM-scan and serve kernels: a warp-wide
-// dot product, bf16 helpers, the gate nonlinearity, and the gate and cell
-// update of one hidden unit, with the caller naming where every operand is
-// read from and written to.
-//
-// One warp computes one unit: the four gate rows (i, f, g, o) of [x ; h_prev]
-// reduced across the warp, then lane 0 updates the cell. x and h_prev live in
-// shared memory; the weights are read-only for the launch (read through the
-// non-coherent cache); c and the outputs are global memory written by their
-// unit's owner only. The serve kernel computes its units from shared-memory
-// records of its own (serve_scan.cu) and takes only the helpers.
+// dot product, bf16 helpers, the gate nonlinearity and what a layer
+// evaluation does with a unit's new state. Each kernel computes its units
+// from shared-memory records of its own (lstm_scan.cu, serve_scan.cu).
 
 #pragma once
 
@@ -70,56 +63,5 @@ enum Commit {
   kCommitMasked = 1,  // write the new (h, c) if `mask`, else the old ones
   kCommitNever = 2,   // speculative: leave the state as it is
 };
-
-// One layer evaluation of one LSTM stack. Pointers are per layer.
-struct LstmLayer {
-  const float* wih;     // [4H, H]
-  const float* whh;     // [4H, H]
-  const float* bih;     // [4H]
-  const float* bhh;     // [4H], or null when bih already holds b_ih + b_hh
-  const float* x;       // [H] layer input (shared memory)
-  const float* h_prev;  // [H] previous h (shared memory)
-  const float* c_in;    // [H] previous c
-  float* c_out;         // [H] committed c (may be c_in)
-  float* h_out;         // [H] new h, whatever the commit, or null
-  float* h_state;       // [H] committed h (the next frame's slot), or null
-  const float* h_old;   // [H] the h a unit keeps when it does not commit
-                        // (read only when h_state is set)
-  int H;
-  int commit;           // Commit
-  bool mask;            // for kCommitMasked
-};
-
-// Gates and cell update of unit j, by one whole warp.
-__device__ __forceinline__ void lstm_unit(const LstmLayer& L, int j,
-                                          int lane) {
-  const int H = L.H;
-  float z[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const size_t r = static_cast<size_t>(g) * H + j;
-    z[g] = warp_dot(L.wih + r * H, L.x, H, lane) +
-           warp_dot(L.whh + r * H, L.h_prev, H, lane);
-  }
-  if (lane != 0) return;
-  float b[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const int r = g * H + j;
-    b[g] = L.bhh ? L.bih[r] + L.bhh[r] : L.bih[r];
-  }
-  const float ig = sigmoidf(z[0] + b[0]);
-  const float fg = sigmoidf(z[1] + b[1]);
-  const float gg = tanhf(z[2] + b[2]);
-  const float og = sigmoidf(z[3] + b[3]);
-  const float c_old = L.c_in[j];
-  const float cn = fg * c_old + ig * gg;
-  const float hn = og * tanhf(cn);
-  if (L.h_out) L.h_out[j] = hn;
-  if (L.commit == kCommitNever) return;
-  const bool keep_new = L.commit == kCommitAlways || L.mask;
-  L.c_out[j] = keep_new ? cn : c_old;
-  if (L.h_state) L.h_state[j] = keep_new ? hn : L.h_old[j];
-}
 
 }  // namespace

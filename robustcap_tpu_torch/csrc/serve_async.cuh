@@ -1,12 +1,13 @@
-// The serve kernel's asynchronous copies and clocks, each behind a small
-// __device__ wrapper: the 1-D bulk copy of the Tensor Memory Accelerator
-// (cp.async.bulk, global -> shared memory, no tensor map) completing on an
-// mbarrier that counts the transaction bytes, the mbarrier itself, the
-// block's dynamic shared memory and %globaltimer.
+// The kernels' asynchronous copies, clocks and memory-model primitives,
+// each behind a small __device__ wrapper: the 1-D bulk copy of the Tensor
+// Memory Accelerator (cp.async.bulk, global -> shared memory, no tensor map)
+// completing on an mbarrier that counts the transaction bytes, the mbarrier
+// itself, the block's dynamic shared memory, %globaltimer and an L2
+// prefetch.
 //
-// Keeping the PTX here lets a host build of the kernel (g++ with each CUDA
+// Keeping the PTX here lets a host build of a kernel (g++ with each CUDA
 // thread a std::thread) replace this one header: a copy becomes a memcpy and
-// an mbarrier phase a flag, and the rest of serve_scan.cu runs as it is.
+// an mbarrier phase a flag, and the rest of the kernel runs as it is.
 
 #pragma once
 
@@ -76,6 +77,11 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Bring the 128-byte line at p into L2, without waiting for it.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 __device__ __forceinline__ unsigned long long globaltimer() {

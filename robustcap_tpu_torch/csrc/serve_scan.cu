@@ -126,16 +126,6 @@ enum StackId { kR2 = 0, kR3, kR4, kR6, kR7, kR8 };
 
 static_assert(sizeof(TailShared) <= kTailSmem, "tail scratch");
 
-// f32 outputs of one tail evaluation, laid end to end
-constexpr int kOffPose = 0;       // [24, 3, 3]
-constexpr int kOffTran = 216;     // [3]
-constexpr int kOffContact = 219;  // [2]
-constexpr int kOffPfoot = 221;    // [2, 3]
-constexpr int kOffFloor = 227;    // [11, 3]
-constexpr int kOffJtemp = 260;    // [33, 3]
-constexpr int kOffJoint = 359;    // [24, 3]
-constexpr int kOffJlm = 431;      // [33, 3]
-
 // synthetic keypoints: bbox-normalised [33, 3], raw [33, 3],
 // joint[1:] - joint[0] [23, 3]
 constexpr int kSynNorm = 0;
@@ -240,7 +230,7 @@ struct Args {
   float* contact;  // [T, 2]
   const int* starts;       // [6, 4, nb + 1] the plan's record runs
   unsigned long long* ts;  // [T, kTsSlots] timestamps, or null
-  int T, use_imu, live, update_vision_freq, use_flat_floor, blendshape;
+  int T, use_imu, live, update_vision_freq, use_flat_floor;
   int init_n[3];
   int nb;
   Layout lay;
@@ -658,7 +648,7 @@ __device__ __forceinline__ void finish_dense(const Stack& s, int k, int r,
 }
 
 // The m units of a batch of layer records from unit r_first, after their
-// sums: the gates and cell update of each (as lstm_cell.cuh's lstm_unit),
+// sums: the gates and cell update of each (as lstm_scan.cu's cell),
 // four lanes a unit: lane g of a group of four (threads 4 i .. 4 i + 3 for
 // unit i) merges gate g's sums and takes its nonlinearity, and the group's
 // first lane updates the cell. Every lane of the calling warps takes part
@@ -1024,61 +1014,44 @@ __device__ void load_j3dr(const Args& a, int t, float* dst, bool round) {
 }
 
 // Block 0 runs each tail on shared-memory copies of everything it reads
-// (its body-model constants, copied once per launch into the tconst area;
-// the frame's inputs and the carry, staged into the activation area, which
-// no phase uses while a tail runs) and writes its outputs there: the tail's
-// serial steps then wait on shared memory, not on L2, which the 227 KB of
-// shared memory leave little L1 in front of. A frame's staging is one
-// element per thread, one load each.
-// Floats of the staging area: inputs, carry, outputs (kOff*), their ints.
-constexpr int kStOut7 = 0;       // [144]
-constexpr int kStOut8 = 144;     // [2]
-constexpr int kStVr = 148;       // [3]
-constexpr int kStPc = 152;       // [3]
-constexpr int kStRcr = 156;      // [9]
-constexpr int kStC = 168;        // c, k_lerp
-constexpr int kStFirstTran = 172;  // [3]
-constexpr int kStGrav = 176;     // [3]
-constexpr int kStLastPfoot = 180;  // [6]
-constexpr int kStLastTran = 188;   // [3]
-constexpr int kStFloor = 192;    // [33]
-constexpr int kStJtemp = 228;    // [99]
-constexpr int kStInts = 328;     // floor_cnt, vision_count; has (2 bytes)
-constexpr int kStOut = 332;      // [530] the tail's f32 outputs (kOff*)
-constexpr int kStOutI = 864;     // floor_cnt, vision_count out
-constexpr int kStFloats = 868;
-// Floats of the tconst area: parent (int bits), bone, j0, wsub, v0sub
-constexpr int kTcParent = 0, kTcBone = 24, kTcJ0 = 96, kTcWsub = 168,
-              kTcV0sub = 960;
+// (its body-model constants and the launch's flags, copied once per launch
+// into the tconst area in the tail's kTc* layout; the frame's inputs and the
+// carry, staged into the activation area, which no phase uses while a tail
+// runs, in its kIn* layout) and writes its outputs there: the tail's serial
+// steps then wait on shared memory, not on L2, which the 227 KB of shared
+// memory leave little L1 in front of. A frame's staging is one element per
+// thread, one load each.
+// Floats of the staging area: the tail's inputs (kIn*), its f32 outputs
+// (kOff*), their ints.
+constexpr int kStOut = kTailIn;
+constexpr int kStOutI = kStOut + kTailOut;
+constexpr int kStFloats = kStOutI + 2;
+static_assert(kStFloats == 868, "ops/serve_scan.py: _TAIL_STAGE");
+static_assert(kTailConst * 4 == 4288, "ops/serve_scan.py: _TAIL_CONST");
 
-// Thread i copies element i of the segments laid end to end (4-byte
-// items): one load a thread.
-struct Seg {
-  const void* src;
-  int n, dst;
-};
-template <int N>
-__device__ __forceinline__ void copy_segs(const Seg (&seg)[N], float* dst) {
-  int i = threadIdx.x;
-#pragma unroll
-  for (int s = 0; s < N; ++s) {
-    if (i >= 0 && i < seg[s].n)
-      dst[seg[s].dst + i] = reinterpret_cast<const float*>(seg[s].src)[i];
-    i -= seg[s].n;
-  }
-}
-
-// Block 0, once per launch: the tail's body-model constants into tconst.
+// Block 0, once per launch: the tail's body-model constants and the
+// launch's flags into tconst.
 __device__ void stage_tail_constants(const Args& a, float* tc) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < 24; i += kThreads)
-    tc[kTcParent + i] = __int_as_float(a.parent[i]);
+  int* tci = reinterpret_cast<int*>(tc);
+  for (int i = tid; i < 24; i += kThreads) tci[kTcParent + i] = a.parent[i];
   for (int i = tid; i < 72; i += kThreads) {
     tc[kTcBone + i] = a.bone[i];
     tc[kTcJ0 + i] = a.j0[i];
   }
   for (int i = tid; i < 33 * 24; i += kThreads) tc[kTcWsub + i] = a.wsub[i];
   for (int i = tid; i < 99; i += kThreads) tc[kTcV0sub + i] = a.v0sub[i];
+  if (tid == 0) {
+    tc[kTcConfHi] = a.hi;
+    tc[kTcContact] = a.contact_threshold;
+    tc[kTcDistance] = a.distance_threshold;
+    tc[kTcFilter] = a.tran_filter_num;
+    tc[kTcHeight] = a.height_threshold;
+    tci[kTcFloor] = a.use_flat_floor;
+    tci[kTcLive] = a.live;
+    tci[kTcVisionFreq] = a.update_vision_freq;
+    tci[kTcLandmarks] = 1;
+  }
 }
 
 // Block 0: tail w (0 speculative, 1 final) of frame t, with pc its
@@ -1087,75 +1060,31 @@ __device__ void run_tail(const Args& a, unsigned char* sm, int t,
                          const float* pc, TailShared& tsh) {
   float* st = reinterpret_cast<float*>(sm + a.lay.act);
   const float* tc = reinterpret_cast<const float*>(sm + a.lay.tconst);
-  const Seg seg[] = {{a.st[kR7].out, 144, kStOut7},
-                     {a.st[kR8].out, 2, kStOut8},
-                     {a.st[kR3].out, 3, kStVr},
-                     {pc, 3, kStPc},
-                     {a.rcr + 9 * t, 9, kStRcr},
-                     {a.c + t, 1, kStC},
-                     {a.k_lerp + t, 1, kStC + 1},
-                     {a.first_tran + 3 * t, 3, kStFirstTran},
-                     {a.grav + 3 * t, 3, kStGrav},
-                     {a.last_pfoot, 6, kStLastPfoot},
-                     {a.last_tran, 3, kStLastTran},
-                     {a.floor_buf, 33, kStFloor},
-                     {a.j_temp, 99, kStJtemp},
-                     {a.ints, 2, kStInts}};
+  const Seg seg[] = {{a.st[kR7].out, 144, kInOut7},
+                     {a.st[kR8].out, 2, kInOut8},
+                     {a.st[kR3].out, 3, kInVr},
+                     {pc, 3, kInPc},
+                     {a.rcr + 9 * t, 9, kInRcr},
+                     {a.c + t, 1, kInC},
+                     {a.k_lerp + t, 1, kInC + 1},
+                     {a.first_tran + 3 * t, 3, kInFirstTran},
+                     {a.grav + 3 * t, 3, kInGrav},
+                     {a.last_pfoot, 6, kInLastPfoot},
+                     {a.last_tran, 3, kInLastTran},
+                     {a.floor_buf, 33, kInFloor},
+                     {a.j_temp, 99, kInJtemp},
+                     {a.ints, 2, kInInts},
+                     {a.ff + t, 1, kInFirst},
+                     {a.ftv + t, 1, kInFirst + 1}};
   copy_segs(seg, st);
-  unsigned char* has = reinterpret_cast<unsigned char*>(st + kStInts + 2);
   if (threadIdx.x == kThreads - 1) {
+    unsigned char* has = reinterpret_cast<unsigned char*>(st + kInHas);
     has[0] = a.has[0];
     has[1] = a.has[1];
   }
-  TailArgs ta;
-  ta.out7 = st + kStOut7;
-  ta.out8 = st + kStOut8;
-  ta.rcr = st + kStRcr;
-  ta.vr = st + kStVr;
-  ta.pc = st + kStPc;
-  ta.c = st + kStC;
-  ta.k_lerp = st + kStC + 1;
-  ta.first_tran = st + kStFirstTran;
-  ta.grav = st + kStGrav;
-  ta.last_pfoot = st + kStLastPfoot;
-  ta.has_pfoot = has;
-  ta.last_tran = st + kStLastTran;
-  ta.has_tran = has + 1;
-  ta.floor_buf = st + kStFloor;
-  ta.floor_cnt = reinterpret_cast<const int*>(st + kStInts);
-  ta.vision_count = reinterpret_cast<const int*>(st + kStInts + 1);
-  ta.j_temp = st + kStJtemp;
-  ta.parent = reinterpret_cast<const int*>(tc + kTcParent);
-  ta.bone = tc + kTcBone;
-  ta.j0 = tc + kTcJ0;
-  ta.wsub = tc + kTcWsub;
-  ta.v0sub = tc + kTcV0sub;
-  ta.pd = a.pd;
-  float* f = st + kStOut;
-  ta.pose = f + kOffPose;
-  ta.tran = f + kOffTran;
-  ta.contact = f + kOffContact;
-  ta.pfoot = f + kOffPfoot;
-  ta.floor_buf_out = f + kOffFloor;
-  ta.floor_cnt_out = reinterpret_cast<int*>(st + kStOutI);
-  ta.vision_count_out = reinterpret_cast<int*>(st + kStOutI + 1);
-  ta.j_temp_out = f + kOffJtemp;
-  ta.joint = f + kOffJoint;
-  ta.j_lm = f + kOffJlm;
-  ta.first_frame = a.ff[t];
-  ta.first_tran_valid = a.ftv[t];
-  ta.conf_hi = a.hi;
-  ta.contact_threshold = a.contact_threshold;
-  ta.distance_threshold = a.distance_threshold;
-  ta.tran_filter_num = a.tran_filter_num;
-  ta.height_threshold = a.height_threshold;
-  ta.use_flat_floor = a.use_flat_floor;
-  ta.live = a.live;
-  ta.update_vision_freq = a.update_vision_freq;
-  ta.landmarks = 1;
-  ta.blendshape = a.blendshape;
   __syncthreads();
-  tail_block(ta, tsh);
+  tail_block(st, tc, st + kStOut, reinterpret_cast<int*>(st + kStOutI), a.pd,
+             nullptr, nullptr, tsh);
   __syncthreads();
 }
 
@@ -1538,7 +1467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int kPtrsPerStack = kKinds + 5;
 constexpr int kNumPtrs = kStacks * kPtrsPerStack + 38;
 constexpr int kIntsPerStack = 4 + 5 * kKinds;
-constexpr int kNumInts = 1 + kStacks * kIntsPerStack + 10 + 14;
+constexpr int kNumInts = 1 + kStacks * kIntsPerStack + 9 + 14;
 constexpr int kNumFloats = 6;
 
 template <class M>
@@ -1610,7 +1539,6 @@ int launch(const int64_t* ptrs, const int* ints, const float* flts,
   a.live = ints[q++];
   a.update_vision_freq = ints[q++];
   a.use_flat_floor = ints[q++];
-  a.blendshape = ints[q++];
   for (int l = 0; l < 3; ++l) a.init_n[l] = ints[q++];
   a.nb = ints[q++];
   Layout& L = a.lay;

@@ -57,7 +57,7 @@ from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
                       is_quantized, prepare_scan_params, rnn_step)
 from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_constants,
                                  tail_plain)
-from ..ops.lstm_scan import rnn_scan_chunked
+from ..ops.lstm_scan import prepare_lstm_scan, rnn_scan_chunked
 from ..ops.serve_scan import (check_serve_cfg, prepare_serve_params,
                               serve_scan)
 
@@ -620,7 +620,9 @@ class StreamingNet:
     (``forward_online`` / ``reset_states``) plus ``forward_chunk``, around
     the steady step (each wide cell once per frame; first frames go through
     the prescan first). int8 records are dequantized once here (all but the
-    gate matrices under ``cfg.int8_compute``). With ``cfg.pallas_serve`` the
+    gate matrices under ``cfg.int8_compute``). With ``cfg.pallas_inertial``
+    rnn2 and rnn3 are packed once here for the chunk pre-scan's LSTM-scan
+    kernel (``prepare_lstm_scan``). With ``cfg.pallas_serve`` the
     serve kernel's operands are prepared once here, in its int8-gate mode
     under ``cfg.int8_compute``, else bf16 for a quantized tree, else the
     weights' dtype, and every chunk is one launch."""
@@ -638,6 +640,10 @@ class StreamingNet:
                                include_first_frame_step=False,
                                cond_updater=True)
         self._chunk_steps = {}
+        self._lstm = None
+        if cfg.pallas_inertial:
+            self._lstm = {n: prepare_lstm_scan(params[n])
+                          for n in ("rnn2", "rnn3")}
         self._serve = None
         if cfg.pallas_serve:
             self._serve = (prepare_serve_params(
@@ -704,10 +710,10 @@ class StreamingNet:
             orir = torch.einsum("tcr,tncs->tnrs", Rcr, oric_c)
             xs2 = torch.cat([accr.reshape(K, -1), orir.reshape(K, -1)], -1)
             st = carry["states"]
-            out2, st2 = rnn_scan_chunked(self.params["rnn2"], xs2,
+            out2, st2 = rnn_scan_chunked(self._lstm["rnn2"], xs2,
                                          st["rnn2"])
             xs3 = torch.cat([xs2, out2], -1)
-            out3, st3 = rnn_scan_chunked(self.params["rnn3"], xs3,
+            out3, st3 = rnn_scan_chunked(self._lstm["rnn3"], xs3,
                                          st["rnn3"])
             frames["out2"], frames["out3"] = out2, out3
         outs = []

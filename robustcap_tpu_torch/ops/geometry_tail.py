@@ -29,11 +29,16 @@ from ..math.general import lerp
 from ..math.spatial import mat3_mul
 from . import _build
 
-__all__ = ["LAUNCHES", "tail_constants", "tail_plain", "geometry_tail",
-           "sync_mp3d"]
+__all__ = ["LAUNCHES", "PD_ROW", "BODY_WORDS", "tail_constants", "tail_plain",
+           "geometry_tail", "sync_mp3d"]
 
 # kernel launches so far (one per call on CUDA tensors)
 LAUNCHES = 0
+
+# The kernels' layouts (csrc/tail_block.cuh): floats of a posedirs row
+# (kPdRow) and words of the packed body-model constants (kTcBody)
+PD_ROW = 208
+BODY_WORDS = 1060
 
 
 def sync_mp3d(vert_mp: torch.Tensor, joint: torch.Tensor) -> torch.Tensor:
@@ -52,10 +57,15 @@ def tail_constants(body_model):
     index (int32, root -> 0), ancestor matrix, bone vectors, zero-pose
     joints, and the skinning weights and rest positions of the 33 landmark
     vertices (ids clipped to the model's
-    vertex range, as the JAX package's gathers clamp them). With pose
-    blendshapes, ``pd`` is the landmarks' posedirs as ``[3, 207, 33]`` (the
-    landmark fastest, so neighbouring kernel threads read neighbouring
-    words)."""
+    vertex range, as the JAX package's gathers clamp them). ``body`` holds
+    the parent index (int32 bits), bones, joints, weights and rest positions
+    end to end as the kernels stage them (``csrc/tail_block.cuh``'s kTc*
+    words, padded to 16 bytes). With pose blendshapes, ``pd`` is the
+    landmarks' posedirs as ``[3, 207, 33]`` (what the plain version reads)
+    and ``pd_rows`` the same as the kernels read it, ``[3 x 33, 208]``: row
+    ``c * 33 + v`` holds landmark v's 207 coefficients of channel c,
+    zero-padded to 16 bytes, so that a warp's lanes read consecutive words
+    of one row."""
     dev = body_model.device
     tree = body_model.tree
     ids = body_model.vertex_index(MP_VERTEX_MASK)
@@ -71,9 +81,19 @@ def tail_constants(body_model):
         "slots": torch.arange(11, device=dev),
         "blendshape": bool(body_model.use_pose_blendshape),
         "pd": None,
+        "pd_rows": None,
     }
+    body = torch.cat([consts["parent"].view(torch.float32)]
+                     + [consts[k].reshape(-1).to(torch.float32)
+                        for k in ("bone", "j0", "wsub", "v0sub")])
+    consts["body"] = torch.cat([body, body.new_zeros(BODY_WORDS
+                                                     - body.numel())])
     if consts["blendshape"]:
-        consts["pd"] = body_model._posedirs[ids].permute(1, 2, 0).contiguous()
+        pd = body_model._posedirs[ids]                       # [33, 3, 207]
+        consts["pd"] = pd.permute(1, 2, 0).contiguous()
+        rows = torch.zeros((3 * len(ids), PD_ROW), dtype=pd.dtype, device=dev)
+        rows[:, :pd.shape[2]] = pd.transpose(0, 1).reshape(-1, pd.shape[2])
+        consts["pd_rows"] = rows
     return consts
 
 
@@ -187,9 +207,10 @@ def tail_plain(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 33 + [_I, _I] + [_F] * 5 + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 21 + [_I, _I] + [_F] * 5 + [_I] * 4 + [_P]
 
-# f32 output fields, their shapes, and their offsets in one output buffer
+# f32 output fields and their shapes, laid end to end in one output buffer
+# as the kernel writes them (csrc/tail_block.cuh's kOff* words)
 _OUT_F32 = (("pose", (24, 3, 3)), ("tran", (3,)), ("contact", (2,)),
             ("pfoot", (2, 3)), ("floor_buf", (11, 3)), ("j_temp", (33, 3)),
             ("joint", (24, 3)), ("j_lm", (33, 3)))
@@ -240,14 +261,10 @@ def _launch(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp):
         ("floor_cnt", carry["floor_cnt"], (), i32),
         ("vision_count", carry["vision_count"], (), i32),
         ("j_temp", carry["j_temp"], (33, 3), f32),
-        ("parent", consts["parent"], (24,), i32),
-        ("bone", consts["bone"], (24, 3), f32),
-        ("j0", consts["j0"], (24, 3), f32),
-        ("wsub", consts["wsub"], (33, 24), f32),
-        ("v0sub", consts["v0sub"], (33, 3), f32),
+        ("body", consts["body"], (BODY_WORDS,), f32),
     ]
     if blendshape:
-        inputs.append(("pd", consts["pd"], (3, 207, 33), f32))
+        inputs.append(("pd_rows", consts["pd_rows"], (99, PD_ROW), f32))
     for name, t, shape, dtype in inputs:
         _check(name, t, shape, dtype, dev)
     ptrs = [t.data_ptr() for _, t, _, _ in inputs]
@@ -262,12 +279,7 @@ def _launch(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp):
         out[name] = buf[off:off + n].view(shape)
         off += n
     out["floor_cnt"], out["vision_count"] = counts[0], counts[1]
-    o = out
-    ptrs += [o["pose"].data_ptr(), o["tran"].data_ptr(),
-             o["contact"].data_ptr(), o["pfoot"].data_ptr(),
-             o["floor_buf"].data_ptr(), counts[0].data_ptr(),
-             counts[1].data_ptr(), o["j_temp"].data_ptr(),
-             o["joint"].data_ptr(), o["j_lm"].data_ptr()]
+    ptrs += [buf.data_ptr(), counts.data_ptr()]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(
         *ptrs, int(bool(frame["first_frame"])),
@@ -275,7 +287,7 @@ def _launch(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp):
         float(cfg.contact_threshold), float(cfg.distance_threshold),
         float(cfg.tran_filter_num), float(cfg.height_threshold),
         int(cfg.use_flat_floor), int(cfg.live), int(cfg.update_vision_freq),
-        int(landmarks), int(blendshape), stream)
+        int(landmarks), stream)
     if err != 0:
         raise RuntimeError(
             f"geometry_tail kernel launch failed: CUDA error {err}")

@@ -41,9 +41,11 @@ from ..nn.rnn import (_dot_i8, _is_qtensor, dequantize_params,
                       dequantize_tensor, quantize_activation,
                       quantize_tensor)
 from . import _build
+from .geometry_tail import PD_ROW
 
 __all__ = ["LAUNCHES", "MODES", "TS_SLOTS", "KINDS", "prepare_serve_params",
-           "pack_stack", "unpack_stack", "serve_plan", "check_serve_cfg",
+           "pack_stack", "unpack_stack", "split_counts", "serve_plan",
+           "check_serve_cfg",
            "serve_scan_plain", "serve_scan"]
 
 # kernel launches so far (one per chunk on CUDA tensors)
@@ -75,7 +77,7 @@ _RING_BARS = 16
 _XIN = 528
 _STATE = 1152
 _TAIL_SMEM = 4352
-_TAIL_CONST = 4240   # the tail's body-model constants
+_TAIL_CONST = 4288   # the tail's body-model constants and flags
 _TAIL_STAGE = 868    # floats: a tail's inputs, carry and outputs
 # the least ring a mode keeps before runs stay resident (f32 keeps none)
 _RING_MIN = {"f32": None, "bf16": 160 * 1024, "int8": 96 * 1024}
@@ -96,6 +98,13 @@ def _padded(n, itemsize):
     r"""``n`` rounded up to whole 16-byte chunks of ``itemsize`` items."""
     per = 16 // itemsize
     return -(-n // per) * per
+
+
+def split_counts(n, nb, rot=0):
+    r"""``n`` items over ``nb`` blocks as evenly as they go: the
+    ``n % nb`` blocks from block ``rot`` on (cyclically) take one more."""
+    q, r = divmod(n, nb)
+    return q + (((np.arange(nb) - rot) % nb) < r)
 
 
 def _row_bytes(w):
@@ -224,10 +233,8 @@ def serve_plan(prepped, n_sms, smem_bytes):
             for name in chain:
                 si = _STACKS.index(name)
                 n = st[name]["out"] if k == 3 else st[name]["H"]
-                q, r = divmod(n, nb)
-                counts = q + (((np.arange(nb) - rot) % nb) < r)
-                starts[si, k, 1:] = np.cumsum(counts)
-                rot = (rot + r) % nb
+                starts[si, k, 1:] = np.cumsum(split_counts(n, nb, rot))
+                rot = (rot + n % nb) % nb
     rec = [st[n]["packed"][2] for n in _STACKS]
     most = (starts[:, :, 1:] - starts[:, :, :-1]).max(axis=2)
     mc = [int(most[si, 1:3].max()) for si in range(len(_STACKS))]
@@ -622,7 +629,8 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
              ptr(consts["j0"], shape=(24, 3)),
              ptr(consts["wsub"], shape=(33, 24)),
              ptr(consts["v0sub"], shape=(33, 3)),
-             ptr(consts["pd"] if blendshape else None, shape=(3, 207, 33))]
+             ptr(consts["pd_rows"] if blendshape else None,
+                 shape=(99, PD_ROW))]
 
     use_imu = bool(cfg.use_imu_updater)
     init_n = [0, 0, 0]
@@ -651,7 +659,7 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
              ptr(timestamps, torch.int64, (T, TS_SLOTS))]
     layout = plan["layout"]
     ints += [T, int(use_imu), int(cfg.live), int(cfg.update_vision_freq),
-             int(cfg.use_flat_floor), int(blendshape), *init_n,
+             int(cfg.use_flat_floor), *init_n,
              plan["blocks"]]
     ints += [layout[k] for k in ("bars", "state", "xin", "act", "actq",
                                  "parts", "red", "own", "tail", "tconst",

@@ -1,6 +1,6 @@
-// Host stand-in of the CUDA runtime for a g++ build of a kernel: a
-// cooperative launch runs every CUDA thread of the grid as a pthread, with
-// std::barriers for __syncthreads and a per-warp exchange for the shuffles.
+// Host stand-in of the CUDA runtime for a g++ build of a kernel: a launch
+// runs every CUDA thread of the grid as a pthread, with std::barriers for
+// __syncthreads and a per-warp exchange for the shuffles.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -29,6 +29,7 @@
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3s { unsigned x, y, z; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
@@ -67,6 +68,7 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   return r;
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
 inline int __dp4a(int a, int b, int c) {
   for (int i = 0; i < 4; ++i) c += (int)(int8_t)(a >> (8 * i)) * (int)(int8_t)(b >> (8 * i));
   return c;
@@ -104,6 +106,13 @@ inline void* si_thread(void* p) {
   si_smem = (unsigned char*)(((uintptr_t)s->block->smem.data() + 127) & ~(uintptr_t)127);
   (*s->fn)();
   return nullptr;
+}
+template <class A>
+cudaError_t cudaLaunchCooperativeKernel(void (*f)(A), dim3 g, dim3 b, void** args, size_t smem, cudaStream_t);
+// a plain launch runs as a cooperative one: every thread of the grid at once
+template <class A>
+cudaError_t cudaLaunchKernel(void (*f)(A), dim3 g, dim3 b, void** args, size_t smem, cudaStream_t s) {
+  return cudaLaunchCooperativeKernel(f, g, b, args, smem, s);
 }
 template <class A>
 cudaError_t cudaLaunchCooperativeKernel(void (*f)(A), dim3 g, dim3 b, void** args, size_t smem, cudaStream_t) {

@@ -1,8 +1,8 @@
-// Host stand-in of csrc/serve_async.cuh, for the g++ build of the serve
-// kernel (tests/test_torch_serve_standin.py): a bulk copy is a memcpy that
-// lowers its mbarrier's pending byte count, mbar_expect_tx raises it, the
-// barrier's phase flips when the count is back at zero, and mbar_wait spins
-// on the phase. The same functions as the real header, with the same
+// Host stand-in of csrc/serve_async.cuh, for the g++ builds of the kernels
+// (tests/test_torch_*_standin.py): a bulk copy is a memcpy that lowers its
+// mbarrier's pending byte count, mbar_expect_tx raises it, the barrier's
+// phase flips when the count is back at zero, and mbar_wait spins on the
+// phase; the L2 prefetch does nothing. The same functions as the real header, with the same
 // alignment rules.
 #pragma once
 #include <atomic>
@@ -54,6 +54,8 @@ inline void bulk_copy(void* dst, const void* src, uint32_t bytes,
   b->pending -= bytes;
   mbar_complete(b);
 }
+
+inline void prefetch_l2(const void*) {}
 
 inline unsigned long long globaltimer() {
   return std::chrono::steady_clock::now().time_since_epoch().count();

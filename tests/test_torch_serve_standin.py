@@ -23,14 +23,7 @@ which at these widths and 8 frames moves values by about 1e-6. The carry's
 counters equal; chained equal to unchained bit for bit.
 """
 
-import contextlib
-import ctypes
 import dataclasses
-import glob
-import os
-import shutil
-import subprocess
-import types
 
 import numpy as np
 import pytest
@@ -40,14 +33,12 @@ from robustcap_tpu_torch.config import SigMPConfig
 from robustcap_tpu_torch.math.angular import r6d_to_rotation_matrix
 from robustcap_tpu_torch.models import sig_mp
 from robustcap_tpu_torch.nn.rnn import cast_params, quantize_params
-from robustcap_tpu_torch.ops import _build
 from robustcap_tpu_torch.ops import serve_scan as S
 from robustcap_tpu_torch.ops.geometry_tail import tail_constants
 from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+from cuda_standin import standin
 from test_torch_tail import CPU, SMALL_SPECS
 
-STANDIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "cuda_standin")
 ATOL = 1e-4
 # a visible first frame (rnn4 keeps its state on it), occluded frames (the
 # refeed fires), mid-confidence and confident frames (the IMU updater fires
@@ -58,19 +49,8 @@ SMEM_SMALL = 28000
 
 @pytest.fixture(scope="module")
 def standin_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("the host build of the serve kernel needs g++")
-    src = tmp_path_factory.mktemp("serve_standin")
-    for path in glob.glob(os.path.join(_build.CSRC, "*.cu*")):
-        shutil.copy(path, src)
-    shutil.copy(os.path.join(STANDIN, "serve_async.cuh"), src)
-    out = src / "serve_scan_standin.so"
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
-                    "-w", "-I", STANDIN, "-x", "c++",
-                    str(src / "serve_scan.cu"), "-o", str(out)],
-                   check=True, capture_output=True, text=True, timeout=600)
-    return ctypes.CDLL(str(out))
+    return standin.build("serve_scan",
+                         tmp_path_factory.mktemp("serve_standin"))
 
 
 @pytest.fixture(scope="module")
@@ -83,13 +63,8 @@ def world():
 
 @pytest.fixture
 def on_standin(monkeypatch, standin_lib):
-    r"""``serve_scan._launch`` goes to the host build, with the calls it
-    makes of the CUDA runtime's streams and devices stubbed."""
-    monkeypatch.setitem(_build._LOADED, "serve_scan", standin_lib)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
+    r"""``serve_scan._launch`` goes to the host build."""
+    standin.use(monkeypatch, "serve_scan", standin_lib)
 
 
 def stream(seed, conf):
