@@ -45,7 +45,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
    the card against the plain version on the CPU; and one more launch per
    mode and chunk with the kernel's timestamp buffer, printed as the
    in-launch split of a frame (weight phases, barriers, tails), with the
-   plan's weight bytes per frame from shared memory and through the ring.
+   plan's weight bytes per frame from shared memory and through the ring;
+6. the batched step (``forward_offline_batched``, plain torch, no kernel):
+   B=4 rows of up to 256 frames (a ground-truth first translation, a first
+   frame, neither; one row shorter and padded) held row by row against the
+   single-stream ``forward_offline`` on the card within phase 4's bounds,
+   run under ``torch.cuda.set_sync_debug_mode("error")``; then timed at
+   B=512, T=512 in f32, bf16 and int8 (``int8_compute``) with CUDA events,
+   and the int8 mode's exact gate products (float64 matmuls) alone;
+7. the offline evaluation: ``evaluate_sequences`` over a fixture corpus
+   (the batched runner), and ``serve_end_metric_deltas`` in bf16 and int8,
+   whose single-stream runs go through the serve kernel (its launches of
+   this phase are counted into the kernel line) and whose MPJPE, PVE and
+   PA-MPJPE must stay within ``END_METRIC_BOUND_MM`` (2 mm) of float32.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -1175,6 +1187,280 @@ def check_serve(params, model, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the batched step
+# ---------------------------------------------------------------------------
+
+# rows of the phase-6 batch: (seed, length, ground-truth first translation,
+# first_frame)
+_BATCH_ROWS = ((11, 256, True, False), (12, 256, False, True),
+               (13, 256, False, False), (14, 200, False, False))
+BATCH_B, BATCH_T = 512, 512      # the timed shape at full width
+
+
+def _batched_frames(rows, T, dev):
+    r"""Stacked frames ``[B, T, ...]`` on ``dev`` (a row's padding repeats
+    its last frame) and each row's (inputs, first_tran, first_frame)."""
+    import torch
+    from robustcap_tpu_torch.models.sig_mp import DEFAULT_GRAVITY
+    out = {k: [] for k in ("j2dc", "accc", "oric", "first_tran",
+                           "first_tran_valid", "first_frame", "gravityc")}
+    singles = []
+    for seed, n, gt, first in rows:
+        inputs = _stream_inputs(seed, _mixed(n, seed))
+        ft = np.asarray([0.1, -0.2, 3.0], np.float32) if gt else None
+        singles.append((inputs, ft, first))
+        for k, x in zip(("j2dc", "accc", "oric"), inputs):
+            out[k].append(np.concatenate([x, np.repeat(x[-1:], T - n, 0)]))
+        out["first_tran"].append(np.tile(ft if gt else np.zeros(3,
+                                                               np.float32),
+                                         (T, 1)))
+        out["first_tran_valid"].append((np.arange(T) == 0) & gt)
+        out["first_frame"].append((np.arange(T) == 0) & first)
+        out["gravityc"].append(np.tile(DEFAULT_GRAVITY, (T, 1)))
+    frames = {k: torch.from_numpy(np.stack(v)).to(dev)
+              for k, v in out.items()}
+    return frames, singles
+
+
+def _time_batched(sig_mp, params, model, cfg, frames, dev):
+    r"""Device time of one ``forward_offline_batched`` run under
+    ``set_sync_debug_mode("error")`` (CUDA events; a run that reads a value
+    back to the host raises), after a warm-up of 8 frames."""
+    import torch
+    warm = {k: v[:, :8] for k, v in frames.items()}
+    sig_mp.forward_offline_batched(params, model, cfg, warm, device=dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        pose, tran = sig_mp.forward_offline_batched(params, model, cfg,
+                                                    frames, device=dev)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), pose, tran
+
+
+def _profile_batched(sig_mp, params, model, cfg, frames, dev):
+    r"""Kernel launches, device busy time and the four kernels with the
+    most device time, per frame-step of ``forward_offline_batched``, from
+    ``torch.profiler`` (the device-side events only, each kernel's time
+    once): the difference between runs over 12 and 4 frames, over 8, so
+    that the prescan and the set-up cancel. ``None`` where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def totals(n):
+        short = {k: v[:, :n] for k, v in frames.items()}
+        sig_mp.forward_offline_batched(params, model, cfg, short, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sig_mp.forward_offline_batched(params, model, cfg, short,
+                                           device=dev)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # the operators that launch kernels carry their kernels' time too:
+        # count the device-side events alone
+        by_op = {e.key: getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0))
+                 for e in events if str(e.device_type).endswith("CUDA")
+                 and not getattr(e, "is_user_annotation", False)}
+        launches = sum(e.count for e in events
+                       if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                    "cuLaunchKernel", "cuLaunchKernelEx"))
+        return launches, by_op
+
+    (k4, ops4), (k12, ops12) = totals(4), totals(12)
+    per_op = {k: (v - ops4.get(k, 0)) / 1e3 / 8 for k, v in ops12.items()}
+    busy = sum(per_op.values())
+    if busy <= 0:
+        return None
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:4]
+    return (k12 - k4) / 8, busy, top
+
+
+def _int8_product_ms(qparams, B, dev):
+    r"""Device time of one frame-step's exact int8 gate products at batch
+    ``B`` (``nn.rnn._dot_i8``, a float64 matmul on the card): every gate
+    matrix of the stacks the batched step evaluates, rnn7 and rnn8 twice
+    (speculative and final heads)."""
+    import torch
+    from robustcap_tpu_torch.nn.rnn import _dot_i8
+    evals = ("rnn2", "rnn3", "rnn4", "rnn6", "rnn7", "rnn8", "rnn7", "rnn8")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ops = []
+    for name in evals:
+        for layer in qparams[name]["layers"]:
+            for w in (layer["w_ih"], layer["w_hh"]):
+                x = torch.randint(-127, 128, (B, w["q"].shape[1]),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int8)
+                ops.append((x, w["q"]))
+    ms = _time_ms(lambda: [_dot_i8(x, w) for x, w in ops], reps=5)
+    n_ops = sum(2 * x.shape[0] * w.shape[0] * w.shape[1] for x, w in ops)
+    return ms, n_ops
+
+
+def check_batched(params, model, dev):
+    r"""Phase 6: the batched step against the single-stream path on the
+    card, then its rate at full width in each weight mode."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+
+    T = max(n for _, n, _, _ in _BATCH_ROWS)
+    frames, singles = _batched_frames(_BATCH_ROWS, T, dev)
+    lengths = [n for _, n, _, _ in _BATCH_ROWS]
+    sig_mp.forward_offline_batched(params, model, SigMPConfig(),
+                                   {k: v[:, :2] for k, v in frames.items()},
+                                   device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pose_b, tran_b = sig_mp.forward_offline_batched(
+            params, model, SigMPConfig(), frames, lengths=lengths,
+            device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = True
+    for b, ((inputs, ft, first), (_, n, _, _)) in enumerate(
+            zip(singles, _BATCH_ROWS)):
+        one = sig_mp.forward_offline(params, model, SigMPConfig(), *inputs,
+                                     first_tran=ft, first_frame=first,
+                                     device=dev)
+        seeded = ("GT first translation" if ft is not None
+                  else "first frame" if first else "no seed")
+        ok &= _compare(
+            f"batched B={len(_BATCH_ROWS)} row {b} (T={n}, {seeded}) vs "
+            "forward_offline (card, plain)",
+            (pose_b[b, :n].cpu(), tran_b[b, :n].cpu()),
+            tuple(x.cpu() for x in one), (64, 128, n))
+    _require(ok, "batched step outside its bounds against the single-stream "
+             "path (see the lines above)")
+
+    # the rate at full width, each weight mode
+    big, _ = _batched_frames(
+        [(20 + i % 4, BATCH_T, i % 3 == 0, i % 3 == 1)
+         for i in range(BATCH_B)], BATCH_T, dev)
+    rates = {}
+    for mode, p, cfg in _serve_modes(params):
+        torch.cuda.reset_peak_memory_stats()
+        ms, pose, tran = _time_batched(sig_mp, p, model, cfg, big, dev)
+        _require(bool(torch.isfinite(pose).all())
+                 and bool(torch.isfinite(tran).all()),
+                 f"batched {mode}: non-finite output")
+        fps = BATCH_B * BATCH_T / (ms / 1e3)
+        rates[mode] = dict(ms=ms, frames_per_s=fps)
+        print(f"[batched] {mode}: B={BATCH_B} T={BATCH_T} in {ms:.1f} ms "
+              f"(CUDA events, no host sync: set_sync_debug_mode('error')): "
+              f"{fps:.1f} frames/s, {ms / BATCH_T:.3f} ms per frame-step; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              "GiB", flush=True)
+        del pose, tran
+        prof = _profile_batched(sig_mp, p, model, cfg, big, dev)
+        if prof is None:
+            print(f"[batched] {mode}: device busy time not measured (the "
+                  "profiler recorded no device time)", flush=True)
+        else:
+            n_k, busy, top = prof
+            print(f"[batched] {mode}: {n_k:.0f} kernel launches and "
+                  f"{busy:.3f} ms of device time per frame-step "
+                  f"(torch.profiler); device idle "
+                  f"{(1 - busy / (ms / BATCH_T)) * 100:.1f}% of the timed "
+                  "frame-step; most device time: "
+                  + "; ".join(f"{name[:60]} {t:.3f} ms" for name, t in top),
+                  flush=True)
+    q = _serve_modes(params)[2][1]
+    i8_ms, i8_ops = _int8_product_ms(q, BATCH_B, dev)
+    print(f"[batched] int8 at B={BATCH_B}: the exact gate products "
+          f"(float64 matmuls, {i8_ops / 1e9:.1f} G operations) "
+          f"take {i8_ms:.3f} ms a frame-step, "
+          f"{i8_ms / (rates['int8']['ms'] / BATCH_T) * 100:.1f}% of the int8 "
+          "step", flush=True)
+    rates["int8_product_ms_per_step"] = i8_ms
+    return rates
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the offline evaluation and the serving modes' end-metric contract
+# ---------------------------------------------------------------------------
+
+EVAL_SEQ, EVAL_CAM, EVAL_T, EVAL_SEED = 1, 2, 64, 5
+# batched and single-stream trajectories scored by the same code: their
+# metrics may differ by the float32 paths' disagreement only
+EVAL_AGREE_MM = 0.5
+
+
+def check_eval(params, model, dev):
+    r"""Phase 7: ``evaluate_sequences`` (the batched runner) on a fixture
+    corpus, then ``serve_end_metric_deltas`` in bf16 and int8, whose
+    changes from float32 must stay inside ``END_METRIC_BOUND_MM``. Returns
+    the serve-kernel launches of the phase by mode."""
+    import warnings
+
+    import torch
+    from robustcap_tpu_torch.eval import (END_METRIC_BOUND_MM,
+                                          build_aist_sequences,
+                                          evaluate_sequences,
+                                          serve_end_metric_deltas)
+    from robustcap_tpu_torch.ops import serve_scan
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+
+    ds = build_fixture_dataset(model, n_seq=EVAL_SEQ, T=EVAL_T, n_cam=EVAL_CAM,
+                               seed=EVAL_SEED)
+    seqs = build_aist_sequences(ds, num_cameras=EVAL_CAM)
+    with warnings.catch_warnings():
+        # the procedural body's regressor stands in for the H36M asset
+        warnings.simplefilter("ignore")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_sequences(seqs, params, model,
+                                 pad_to_multiple=EVAL_T, device=dev)
+        secs = time.perf_counter() - t0
+        metrics = {k: out[k] * 1e3 for k in ("mpjpe", "pve", "pampjpe")}
+        _require(all(np.isfinite(v) for v in metrics.values()),
+                 f"evaluate_sequences: non-finite metrics {metrics}")
+        print(f"[eval] evaluate_sequences on {len(seqs)} fixture sequences "
+              f"of {EVAL_T} frames (seed {EVAL_SEED}, random weights): "
+              + ", ".join(f"{k} {v:.3f} mm" for k, v in metrics.items())
+              + f"; tran error {out['tran_error'] * 1e3:.3f} mm; "
+              f"{secs:.2f} s with scoring (host clock)", flush=True)
+
+        # one mode a call, so that each mode's serve launches are counted
+        launches, deltas = {}, {}
+        for mode in ("bf16", "int8"):
+            serve_scan.LAUNCHES = 0
+            q = serve_end_metric_deltas(params, model, eval_frames=EVAL_T,
+                                        n_seq=EVAL_SEQ, n_cam=EVAL_CAM,
+                                        modes=(mode,), seed=EVAL_SEED,
+                                        device=dev)
+            launches[f"serve_scan_{mode}"] = serve_scan.LAUNCHES
+            deltas[mode] = q[f"pallas_serve_{mode}_delta_mm"]
+    print(f"[eval] serve_end_metric_deltas: float32 {q['f32_mm']} mm; "
+          f"bf16 delta {deltas['bf16']} mm, int8 delta {deltas['int8']} mm "
+          f"(bound {END_METRIC_BOUND_MM} mm); serve launches {launches}",
+          flush=True)
+    for mode, delta in deltas.items():
+        _require(launches[f"serve_scan_{mode}"] == len(seqs),
+                 f"serve kernel {mode}: expected one launch per sequence, "
+                 f"got {launches[f'serve_scan_{mode}']}")
+        for k, v in delta.items():
+            _require(abs(v) < END_METRIC_BOUND_MM,
+                     f"serve kernel {mode}: {k} moved {v} mm from float32, "
+                     f"outside the {END_METRIC_BOUND_MM} mm contract")
+    for k, v in q["f32_mm"].items():
+        _require(abs(v - metrics[k]) < EVAL_AGREE_MM,
+                 f"{k}: batched {metrics[k]:.3f} mm against single-stream "
+                 f"{v:.3f} mm (bound {EVAL_AGREE_MM} mm)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1217,6 +1503,9 @@ def main():
     tail = check_tail([model, model_bs], dev, gen)
     launches = check_main(params, model, dev)
     serve = check_serve(params, model, dev)
+    check_batched(params, model, dev)
+    for key, n in check_eval(params, model, dev).items():
+        launches[key] += n
 
     kernels = [
         dict(name="lstm_scan", route="cuda",

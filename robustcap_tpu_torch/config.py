@@ -8,21 +8,85 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 __all__ = [
-    "SigMPConfig", "EVAL_PROFILES", "VEL_SCALE",
-    "MP_VERTEX_MASK", "IMU_JOINT_MASK", "SMPL_PARENT",
+    "Paths", "paths", "SigMPConfig", "EVAL_PROFILES",
+    "PW3D_OCCLUDED_SEQUENCES", "VEL_SCALE", "TRAN_OFFSET", "MP_VERTEX_MASK",
+    "IMU_VERTEX_MASK", "IMU_JOINT_MASK", "SMPL_PARENT",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class Paths:
+    r"""Where the data lives: ``ROBUSTCAP_DATA`` or ``data`` by default."""
+    data_root: str = os.environ.get("ROBUSTCAP_DATA", "data")
+
+    @property
+    def smpl_file(self):
+        return os.path.join(self.data_root, "models/SMPL_male.pkl")
+
+    @property
+    def smpl_file_female(self):
+        return os.path.join(self.data_root, "models/SMPL_female.pkl")
+
+    @property
+    def work_dir(self):
+        return os.path.join(self.data_root, "dataset_work")
+
+    @property
+    def aist_dir(self):
+        return os.path.join(self.work_dir, "AIST")
+
+    @property
+    def amass_dir(self):
+        return os.path.join(self.work_dir, "AMASS")
+
+    @property
+    def totalcapture_dir(self):
+        return os.path.join(self.work_dir, "TotalCapture")
+
+    @property
+    def pw3d_dir(self):
+        return os.path.join(self.work_dir, "3DPW")
+
+    @property
+    def weight_dir(self):
+        return os.path.join(self.data_root, "weights")
+
+    @property
+    def j_regressor_file(self):
+        return os.path.join(self.work_dir, "J_regressor_h36m.npy")
+
+    @property
+    def gmm_prior_file(self):
+        return os.path.join(self.work_dir, "gmm_08.pkl")
+
+    @property
+    def syn_conf_file(self):
+        return os.path.join(self.work_dir, "syn_c.pt")
+
+    @property
+    def temp_dir(self):
+        return os.path.join(self.data_root, "temp")
+
+
+paths = Paths()
 
 # Root-velocity scale used when training/integrating rnn3
 VEL_SCALE = 3
+# SMPL root offset in mean shape
+TRAN_OFFSET = (0.0, 0.25, 5.0)
 
 # SMPL mesh vertex for each of the 33 MediaPipe landmarks
 MP_VERTEX_MASK = [332, 2809, 2800, 455, 6260, 3634, 3621, 583, 4071, 45, 3557,
                   1873, 4123, 1652, 5177, 2235, 5670, 2673, 6133, 2319, 5782,
                   2746, 6191, 3138, 6528, 1176, 4662, 3381, 6727, 3387, 6787,
                   3226, 6624]
+# SMPL vertices whose synthetic acceleration stands in for the 6 IMUs
+# (L/R forearm, L/R lower leg, head, pelvis)
+IMU_VERTEX_MASK = [1961, 5424, 1176, 4662, 411, 3021]
 # SMPL joints whose global orientation stands in for the 6 IMU orientations
 # (L/R elbow, L/R knee, head, pelvis)
 IMU_JOINT_MASK = [18, 19, 4, 5, 15, 0]
@@ -41,10 +105,10 @@ class SigMPConfig:
     geometry tail through the tail kernel (``ops/geometry_tail.py``), and
     ``pallas_serve`` the whole steady step of ``forward_offline`` and
     ``StreamingNet.forward_chunk`` through the serve kernel
-    (``ops/serve_scan.py``, dense float32 weights, one launch per chunk).
+    (``ops/serve_scan.py``, one launch per chunk, in the weights' mode).
     The names are kept from the JAX package so one config value means the
-    same thing in both. ``int8_compute`` is not ported yet: the entry
-    points raise ``NotImplementedError`` for it.
+    same thing in both. ``int8_compute`` runs the gate products of int8
+    weight records on int8 activations (``nn/rnn.py``).
     """
     hidden_size: int = 512
     imu_num: int = 6
@@ -89,3 +153,13 @@ EVAL_PROFILES = {
     "pw3d_occ": dict(config=SigMPConfig(use_flat_floor=False),
                      first_tran_mode="gt", num_cameras=1),
 }
+
+# 3DPW sequences with significant occlusion
+PW3D_OCCLUDED_SEQUENCES = [
+    "courtyard_backpack", "courtyard_basketball",
+    "courtyard_bodyScannerMotions", "courtyard_box", "courtyard_golf",
+    "courtyard_jacket", "courtyard_laceShoe", "downtown_stairs",
+    "flat_guitar", "flat_packBags", "outdoors_climbing",
+    "outdoors_crosscountry", "outdoors_fencing", "outdoors_freestyle",
+    "outdoors_golf", "outdoors_parcours", "outdoors_slalom",
+]

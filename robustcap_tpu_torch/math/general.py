@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lerp", "normalize_tensor", "vector_cross_matrix"]
+__all__ = ["lerp", "normalize_tensor", "append_value", "append_zero",
+           "append_one", "vector_cross_matrix"]
 
 
 def lerp(a, b, t):
@@ -19,6 +20,23 @@ def normalize_tensor(x: torch.Tensor, dim: int = -1, return_norm: bool = False,
     norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
     normalized = x / norm.clamp_min(eps) if eps > 0 else x / norm
     return (normalized, norm) if return_norm else normalized
+
+
+def append_value(x: torch.Tensor, value: float, dim: int = -1) -> torch.Tensor:
+    r"""Append a constant slab of ``value`` along ``dim`` (its size grows by
+    one)."""
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] = 1
+    return torch.cat((x, x.new_full(shape, value)), dim=dim)
+
+
+def append_zero(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return append_value(x, 0.0, dim)
+
+
+def append_one(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return append_value(x, 1.0, dim)
 
 
 def vector_cross_matrix(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@ Port of ``robustcap_tpu/models/sig_mp.py``. The per-frame computation is a
 function ``step(params, carry, frame) -> (carry, (pose [24,3,3], tran [3]))``
 with the JAX package's carry and frame layouts, and ``forward_offline`` and
 ``StreamingNet`` drive it over a sequence or a stream. PyTorch runs eagerly,
-so a scan is a Python loop over frames.
+so a scan is a Python loop over frames. ``forward_offline_batched`` runs B
+sequences at once through :func:`make_batched_step`, the branchless steady
+step over a leading batch axis (see the last point below).
 
 What differs from the JAX step, with the same values:
 
@@ -18,6 +20,11 @@ What differs from the JAX step, with the same values:
   reason. Carried flags (``has_pfoot``, ``first_reach``, ``vision_count``,
   the floor ring) stay tensors on the device, and branches on them are
   ``torch.where`` selects, as in the JAX step.
+* The batched step is the exception: it computes ``c`` on the device, and
+  every per-row decision (the confidence bands, the refeed, the first-frame
+  and first-translation flags, given as ``[B]`` bool tensors) is a
+  ``torch.where``, as ``jax.vmap`` makes of the JAX step, so a batched scan
+  never waits for the device.
 
 Network bank — all 2-layer LSTMs, torch-layout params:
 
@@ -43,8 +50,9 @@ kernel's int8-gate mode.
 
 from __future__ import annotations
 
+import weakref
 from functools import partial
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,16 +63,17 @@ from ..math.general import lerp
 from ..math.spatial import mat3_mul
 from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
                       is_quantized, prepare_scan_params, rnn_step)
-from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_constants,
-                                 tail_plain)
+from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_batched,
+                                 tail_constants, tail_plain)
 from ..ops.lstm_scan import prepare_lstm_scan, rnn_scan_chunked
 from ..ops.serve_scan import (check_serve_cfg, prepare_serve_params,
                               serve_scan)
 
 __all__ = [
     "RNN_SPECS", "DEFAULT_GRAVITY", "init_params", "init_carry", "make_frame",
-    "make_step", "step_from_constants", "prescan_first_frame",
-    "forward_offline", "StreamingNet", "get_bbox_scale", "sync_mp3d",
+    "make_step", "step_from_constants", "make_batched_step",
+    "prescan_first_frame", "forward_offline", "forward_offline_batched",
+    "StreamingNet", "get_bbox_scale", "sync_mp3d",
 ]
 
 # (input_size, output_size, hidden_size, dropout, with_init_net)
@@ -132,25 +141,39 @@ def _cat(*xs):
     return torch.cat([x.reshape(-1) for x in xs])
 
 
+def _bcat(*xs):
+    r""":func:`_cat` row by row: ``[B, ...]`` pieces as one ``[B, K]``."""
+    return torch.cat([x.reshape(x.shape[0], -1) for x in xs], -1)
+
+
+def _state_where(cond, new, old):
+    r"""``(h, c)`` states ``[L, B, H]``: ``new`` in the rows where
+    ``cond [B]`` holds, else ``old``."""
+    return tuple(torch.where(cond[:, None], n, o) for n, o in zip(new, old))
+
+
 def _reproj_refine(cfg, j2dc, c, tran, j_lm):
     r"""Closed-form reprojection refinement (off by default): weighted
-    least-squares delta for x/y then z, applied to (tran, j_lm)."""
-    p_conf = j2dc[:, 2]
-    do_opt = c > cfg.conf_range[0]
-    jx, jy, jz = j_lm[:, 0], j_lm[:, 1], j_lm[:, 2]
-    axy = torch.sum(p_conf / jz ** 2) + cfg.smooth
-    bx = torch.sum(p_conf * (-jx / jz ** 2 + j2dc[:, 0] / jz))
-    by = torch.sum(p_conf * (-jy / jz ** 2 + j2dc[:, 1] / jz))
-    d_xy = torch.stack([bx / axy, by / axy, torch.zeros_like(bx)])
+    least-squares delta for x/y then z, applied to (tran, j_lm). Takes one
+    frame (``j2dc [33, 3]``, ``c []``) or a batch of them (a leading axis
+    on every argument)."""
+    p_conf = j2dc[..., 2]
+    do_opt = (c > cfg.conf_range[0])[..., None]
+    jx, jy, jz = j_lm[..., 0], j_lm[..., 1], j_lm[..., 2]
+    axy = torch.sum(p_conf / jz ** 2, -1) + cfg.smooth
+    bx = torch.sum(p_conf * (-jx / jz ** 2 + j2dc[..., 0] / jz), -1)
+    by = torch.sum(p_conf * (-jy / jz ** 2 + j2dc[..., 1] / jz), -1)
+    d_xy = torch.stack([bx / axy, by / axy, torch.zeros_like(bx)], -1)
     tran = torch.where(do_opt, tran + d_xy, tran)
-    j_lm = torch.where(do_opt, j_lm + d_xy, j_lm)
-    jx, jy, jz = j_lm[:, 0], j_lm[:, 1], j_lm[:, 2]
-    az = torch.sum(p_conf * (jx ** 2 + jy ** 2) / jz ** 4) + cfg.smooth
-    bz = torch.sum(p_conf * ((jx / jz - j2dc[:, 0]) * jx / jz ** 2
-                             + (jy / jz - j2dc[:, 1]) * jy / jz ** 2))
-    d_z = torch.stack([torch.zeros_like(bz), torch.zeros_like(bz), bz / az])
+    j_lm = torch.where(do_opt[..., None], j_lm + d_xy[..., None, :], j_lm)
+    jx, jy, jz = j_lm[..., 0], j_lm[..., 1], j_lm[..., 2]
+    az = torch.sum(p_conf * (jx ** 2 + jy ** 2) / jz ** 4, -1) + cfg.smooth
+    bz = torch.sum(p_conf * ((jx / jz - j2dc[..., 0]) * jx / jz ** 2
+                             + (jy / jz - j2dc[..., 1]) * jy / jz ** 2), -1)
+    d_z = torch.stack([torch.zeros_like(bz), torch.zeros_like(bz), bz / az],
+                      -1)
     tran = torch.where(do_opt, tran + d_z, tran)
-    j_lm = torch.where(do_opt, j_lm + d_z, j_lm)
+    j_lm = torch.where(do_opt[..., None], j_lm + d_z[..., None, :], j_lm)
     return tran, j_lm
 
 
@@ -185,15 +208,17 @@ def _param_device(params) -> torch.device:
     return params["rnn2"]["linear1"]["b"].device
 
 
-def init_carry(params, dtype=torch.float32) -> Dict:
-    r"""Fresh streaming state on the parameters' device."""
+def init_carry(params, dtype=torch.float32, batch_shape=()) -> Dict:
+    r"""Fresh streaming state on the parameters' device; ``batch_shape``
+    ``(B,)`` gives every field a leading ``B`` (the states ``[L, B, H]``)."""
     dev = _param_device(params)
+    batch_shape = tuple(batch_shape)
 
     def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.zeros(batch_shape + shape, dtype=dt, device=dev)
 
     return {
-        "states": {name: init_state(params[name], (), dtype)
+        "states": {name: init_state(params[name], batch_shape, dtype)
                    for name in RNN_SPECS},
         "last_pfoot": zeros(2, 3),
         "has_pfoot": zeros(dt=torch.bool),
@@ -201,7 +226,7 @@ def init_carry(params, dtype=torch.float32) -> Dict:
         "has_tran": zeros(dt=torch.bool),
         "floor_buf": zeros(11, 3),
         "floor_cnt": zeros(dt=torch.int32),
-        "first_reach": torch.ones((), dtype=torch.bool, device=dev),
+        "first_reach": torch.ones(batch_shape, dtype=torch.bool, device=dev),
         "vision_count": zeros(dt=torch.int32),
         "j_temp": zeros(33, 3),
         # first-frame rnn6 output and rnn4 output, stashed by the prescan
@@ -274,7 +299,8 @@ def make_step(body_model, cfg: SigMPConfig,
               output_contacts: bool = False,
               precomputed_inertial: bool = False,
               fuse_spec_heads: bool = True,
-              cond_updater: bool = False):
+              cond_updater: bool = False,
+              output_r6d: bool = False):
     r"""Build ``step(params, carry, frame) -> (carry, (pose, tran))`` over
     the body model's constants, with the JAX package's semantics (see
     :func:`step_from_constants` for the options).
@@ -282,7 +308,7 @@ def make_step(body_model, cfg: SigMPConfig,
     return step_from_constants(tail_constants(body_model), cfg,
                                include_first_frame_step, output_contacts,
                                precomputed_inertial, fuse_spec_heads,
-                               cond_updater)
+                               cond_updater, output_r6d)
 
 
 def step_from_constants(consts, cfg: SigMPConfig,
@@ -291,6 +317,7 @@ def step_from_constants(consts, cfg: SigMPConfig,
                         precomputed_inertial: bool = False,
                         fuse_spec_heads: bool = True,
                         cond_updater: bool = False,
+                        output_r6d: bool = False,
                         stack_step=None):
     r""":func:`make_step` over the tail constants of a body model
     (``ops.geometry_tail.tail_constants``).
@@ -308,6 +335,9 @@ def step_from_constants(consts, cfg: SigMPConfig,
     runs the group's stacks one after another, so the values are the same
     either way. ``precomputed_inertial`` reads rnn2/rnn3 outputs from
     ``frame["out2"]``/``frame["out3"]`` (the chunk pre-scan).
+    ``output_contacts`` appends the contact probabilities ``[2]`` to the
+    outputs, and ``output_r6d`` after them the raw rnn7 head ``[144]``
+    before Gram-Schmidt (a diagnostic tap that changes no other value).
     ``stack_step(params, x, (h, c)) -> (out, (h, c))`` evaluates one stack;
     the default is ``nn.rnn.rnn_step`` with ``cfg.int8_compute`` (the serve
     kernel's plain version passes one with the kernel's arithmetic)."""
@@ -539,6 +569,8 @@ def step_from_constants(consts, cfg: SigMPConfig,
         out = (T["pose"], T["tran"])
         if output_contacts:
             out = out + (T["contact"],)
+        if output_r6d:
+            out = out + (T["out7"],)
         return new_carry, out
 
     return step
@@ -550,20 +582,174 @@ def prescan_first_frame(params, body_model, carry, frame0,
     real-input state advance and stash its output, and take rnn6's
     first-frame-only extra step, stashing ``pc_first``. The steady step then
     evaluates each of rnn4/rnn6 once per frame. A frame that is not a first
-    frame leaves the carry as it is."""
-    if not frame0["first_frame"]:
+    frame leaves the carry as it is.
+
+    ``frame0["first_frame"]`` is a host bool for one stream, or a ``[B]``
+    bool tensor for a batch (``frame0``'s fields and the carry then have a
+    leading ``B``): every row is evaluated, and a row whose frame 0 is not
+    a first frame keeps its carry by a select."""
+    first = frame0["first_frame"]
+    batched = isinstance(first, torch.Tensor)
+    if not batched and not first:
         return carry
+    cat = _bcat if batched else _cat
     j2dc, accc, oric = frame0["j2dc"], frame0["accc"], frame0["oric"]
+    st = carry["states"]
     out4, st4 = rnn_step(params["rnn4"],
-                         _cat(accc, oric, _bbox_center_normalize(j2dc)),
-                         carry["states"]["rnn4"], int8_compute=int8_compute)
-    out6, st6 = rnn_step(params["rnn6"], _cat(accc, oric, j2dc, out4),
-                         carry["states"]["rnn6"], int8_compute=int8_compute)
+                         cat(accc, oric, _bbox_center_normalize(j2dc)),
+                         st["rnn4"], int8_compute=int8_compute)
+    out6, st6 = rnn_step(params["rnn6"], cat(accc, oric, j2dc, out4),
+                         st["rnn6"], int8_compute=int8_compute)
     carry = dict(carry)
-    carry["states"] = dict(carry["states"], rnn4=st4, rnn6=st6)
+    if batched:
+        carry["states"] = dict(st, rnn4=_state_where(first, st4, st["rnn4"]),
+                               rnn6=_state_where(first, st6, st["rnn6"]))
+        carry["pc_first"] = torch.where(first[:, None], out6,
+                                        carry["pc_first"])
+        carry["out4_first"] = torch.where(first[:, None], out4,
+                                          carry["out4_first"])
+        return carry
+    carry["states"] = dict(st, rnn4=st4, rnn6=st6)
     carry["pc_first"] = out6.reshape(3)
     carry["out4_first"] = out4.reshape(-1)
     return carry
+
+
+# tail constants of each body model the batched path has met, so that a
+# batched run uploads nothing once its model has been seen
+_BATCHED_CONSTS = weakref.WeakKeyDictionary()
+
+
+def _batched_consts(body_model):
+    key = bool(body_model.use_pose_blendshape)
+    hit = _BATCHED_CONSTS.get(body_model)
+    if hit is None or hit[0] != key:
+        hit = (key, tail_constants(body_model))
+        _BATCHED_CONSTS[body_model] = hit
+    return hit[1]
+
+
+def make_batched_step(body_model, cfg: SigMPConfig):
+    r"""The steady step (``include_first_frame_step=False``) over a leading
+    batch axis, in the branchless form the JAX package vmaps for its batched
+    paths (``fuse_spec_heads=False``, ``cond_updater=False``, no kernels):
+    the speculative heads and tail on the inertial joints, one rnn4 and one
+    rnn6 evaluation on inputs selected between the real and the refed
+    keypoints, then the final heads and tail. Every stack is one product of
+    ``[B, K]`` rows per weight.
+
+    ``step(params, carry, frame) -> (carry, (pose [B, 24, 3, 3],
+    tran [B, 3]))``: the carry from ``init_carry(params,
+    batch_shape=(B,))`` seeded by :func:`prescan_first_frame`, the frame's
+    fields ``[B, ...]`` with ``first_frame`` and ``first_tran_valid`` as
+    ``[B]`` bool tensors. The confidence is computed on the device and no
+    value is read back to the host."""
+    consts = _batched_consts(body_model)
+    stack_step = partial(rnn_step, int8_compute=cfg.int8_compute)
+    conf_lo, conf_hi = cfg.conf_range
+    inv_range = 1.0 / (conf_hi - conf_lo)
+
+    def heads_and_tail(params, carry, frame, st, c, Rcr, accr, orir, vr,
+                       j3dr, pc, k_lerp):
+        x = _bcat(accr, orir, j3dr)
+        out7, st7_new = stack_step(params["rnn7"], x, st["rnn7"])
+        out8, st8_new = stack_step(params["rnn8"], x, st["rnn8"])
+        T = tail_batched(consts, cfg, out7, out8, carry, frame, c, Rcr, vr,
+                         pc, k_lerp)
+        if cfg.use_reproj_opt:
+            T["tran"], T["j_lm"] = _reproj_refine(cfg, frame["j2dc"], c,
+                                                  T["tran"], T["j_lm"])
+        return dict(T, st7_new=st7_new, st8_new=st8_new)
+
+    def step(params, carry, frame):
+        st = carry["states"]
+        j2dc, accc, oric = frame["j2dc"], frame["accc"], frame["oric"]
+        first_frame = frame["first_frame"]
+        c = j2dc[..., 2].mean(-1)
+        conf_vis = c > conf_lo
+        full = c >= conf_hi
+        Rcr = oric[:, -1]
+        k_lerp = torch.clamp((c - conf_lo) * inv_range, 0.0, 1.0)
+
+        # -- inertial branch: rotate into the root frame
+        accr = (accc[..., None] * Rcr[:, None]).sum(2)
+        orir = mat3_mul(Rcr.transpose(-1, -2)[:, None], oric)
+        out2, st2_new = stack_step(params["rnn2"], _bcat(accr, orir),
+                                   st["rnn2"])
+        out3, st3_new = stack_step(params["rnn3"], _bcat(accr, orir, out2),
+                                   st["rnn3"])
+        pc_first = carry["pc_first"]
+
+        # -- speculative heads and tail: when occluded, the fused joints are
+        # the inertial ones and pc is pc_first, so the refeed inputs are
+        # known before rnn4/rnn6 run
+        in4 = _bcat(accc, oric, _bbox_center_normalize(j2dc))
+        vu_cond = torch.zeros_like(conf_vis)
+        if cfg.use_vision_updater:
+            T_spec = heads_and_tail(params, carry, frame, st, c, Rcr, accr,
+                                    orir, out3, out2, pc_first, k_lerp)
+            vu_cond = c <= conf_lo
+            if cfg.live:
+                vu_cond = vu_cond & (T_spec["vision_count"]
+                                     == cfg.update_vision_freq)
+            j2dc_syn = T_spec["j_lm"] / T_spec["j_lm"][..., 2:]
+            j3dc_syn = T_spec["joint"][:, 1:] - T_spec["joint"][:, :1]
+            in4 = torch.where(vu_cond[:, None], _bcat(
+                accc, oric, _bbox_center_normalize(j2dc_syn)), in4)
+
+        # -- one rnn4 evaluation; the first frame's real advance and output
+        # are in the prescan carry
+        out4_eval, st4_eval = stack_step(params["rnn4"], in4, st["rnn4"])
+        out4_eff = torch.where(first_frame[:, None], carry["out4_first"],
+                               out4_eval)
+        st4_final = _state_where((conf_vis & ~first_frame) | vu_cond,
+                                 st4_eval, st["rnn4"])
+
+        # -- one rnn6 evaluation (the first frame's extra step prescanned)
+        in6 = _bcat(accc, oric, j2dc, out4_eff)
+        if cfg.use_vision_updater:
+            in6 = torch.where(vu_cond[:, None],
+                              _bcat(accc, oric, j2dc_syn, j3dc_syn), in6)
+        out6_eval, st6_eval = stack_step(params["rnn6"], in6, st["rnn6"])
+        st6_final = _state_where(conf_vis | vu_cond, st6_eval, st["rnn6"])
+        pc = torch.where(conf_vis[:, None], out6_eval, pc_first)
+
+        # -- confidence-gated lerp of inertial and visual joints
+        j3dr_v = (out4_eff.reshape(-1, 23, 3)[..., None]
+                  * Rcr[:, None]).sum(2).reshape(-1, 69)
+        j3dr = torch.where(
+            full[:, None], j3dr_v,
+            torch.where(conf_vis[:, None], lerp(out2, j3dr_v, k_lerp[:, None]),
+                        out2))
+        T = heads_and_tail(params, carry, frame, st, c, Rcr, accr, orir,
+                           out3, j3dr, pc, k_lerp)
+
+        # -- one-shot inertial hidden-state re-init from vision
+        st2_final, first_reach = st2_new, carry["first_reach"]
+        if cfg.use_imu_updater:
+            h_i, c_i = init_net_apply(params["rnn2"], j3dr)
+            st2_final = _state_where(full & first_reach, (h_i, c_i), st2_new)
+            first_reach = first_reach & ~full
+
+        new_carry = {
+            "states": {"rnn2": st2_final, "rnn3": st3_new, "rnn4": st4_final,
+                       "rnn6": st6_final, "rnn7": T["st7_new"],
+                       "rnn8": T["st8_new"]},
+            "last_pfoot": T["pfoot"],
+            "has_pfoot": torch.ones_like(first_reach),
+            "last_tran": T["tran"],
+            "has_tran": torch.ones_like(first_reach),
+            "floor_buf": T["floor_buf"],
+            "floor_cnt": T["floor_cnt"],
+            "first_reach": first_reach,
+            "vision_count": T["vision_count"],
+            "j_temp": T["j_temp"],
+            "pc_first": pc_first,
+            "out4_first": carry["out4_first"],
+        }
+        return new_carry, (T["pose"], T["tran"])
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -585,14 +771,19 @@ def _require_device(params, body_model, dev):
 
 def forward_offline(params, body_model, cfg, j2dc, accc, oric,
                     first_tran=None, first_frame=False, gravityc=None,
-                    return_contacts: bool = False, device="cuda"):
+                    return_contacts: bool = False, return_r6d: bool = False,
+                    device="cuda"):
     r"""Whole-sequence inference: the first-frame prescan, then the steady
     step (``cond_updater=True``) frame by frame, or with ``cfg.pallas_serve``
     one serve-kernel launch over the whole sequence (its int8-gate mode
     under ``cfg.int8_compute``, else the mode of the weights' dtype).
     Returns ``(pose [T,24,3,3], tran [T,3])``, plus contacts ``[T, 2]`` with
-    ``return_contacts``. Params and body model must already be on
-    ``device``."""
+    ``return_contacts``, and then the raw rnn7 head ``[T, 144]`` with
+    ``return_r6d`` (the plain step only: the serve kernel does not keep
+    it). Params and body model must already be on ``device``."""
+    if return_r6d and cfg.pallas_serve:
+        raise ValueError("return_r6d requires the plain step "
+                         "(cfg.pallas_serve=False)")
     _check_cfg(cfg)
     dev = resolve_device(device)
     _require_device(params, body_model, dev)
@@ -607,12 +798,58 @@ def forward_offline(params, body_model, cfg, j2dc, accc, oric,
             prepped, tail_constants(body_model), cfg, frames, carry)
         return (pose, tran, contact) if return_contacts else (pose, tran)
     step = make_step(body_model, cfg, include_first_frame_step=False,
-                     output_contacts=return_contacts, cond_updater=True)
+                     output_contacts=return_contacts, cond_updater=True,
+                     output_r6d=return_r6d)
     outs = []
     for t in range(len(frames["conf"])):
         carry, out = step(params, carry, _frame_at(frames, t))
         outs.append(out)
     return _stack_outputs(outs)
+
+
+_BATCH_FIELDS = {"j2dc": torch.float32, "accc": torch.float32,
+                 "oric": torch.float32, "first_tran": torch.float32,
+                 "gravityc": torch.float32, "first_frame": torch.bool,
+                 "first_tran_valid": torch.bool}
+
+
+def forward_offline_batched(params, body_model, cfg, frames_batched,
+                            lengths: Optional[Sequence[int]] = None,
+                            device="cuda"):
+    r"""B sequences at once: the batched prescan, then
+    :func:`make_batched_step` frame after frame over stacked frames
+    ``[B, T, ...]`` (``j2dc [B, T, 33, 3]``, ``accc [B, T, 6, 3]``,
+    ``oric [B, T, 6, 3, 3]``, ``first_tran``/``gravityc [B, T, 3]``,
+    ``first_frame``/``first_tran_valid [B, T]`` bool), numpy arrays or
+    tensors, as ``eval.runner.stack_frames`` makes them. Returns
+    ``(pose [B, T', 24, 3, 3], tran [B, T', 3])`` with ``T' = max(lengths)``
+    (``T`` without ``lengths``): frames past every row's length are not
+    run. A row's frames past its own length are padding, which the caller
+    discards; the step is causal, so they change no valid frame.
+
+    The kernels are not used here, as in the JAX package's batched path
+    (``cfg``'s ``pallas_*`` flags are ignored). Params and body model must
+    already be on ``device``; with frames already there too, the run reads
+    nothing back to the host once the body model has been seen."""
+    dev = resolve_device(device)
+    _require_device(params, body_model, dev)
+    params = prepare_scan_params(params, cfg.int8_compute)
+    frames = {k: torch.as_tensor(frames_batched[k], dtype=dt, device=dev)
+              for k, dt in _BATCH_FIELDS.items()}
+    B, T = frames["j2dc"].shape[:2]
+    if lengths is not None:
+        T = max(int(n) for n in lengths)
+    step = make_batched_step(body_model, cfg)
+    carry = prescan_first_frame(
+        params, body_model, init_carry(params, batch_shape=(B,)),
+        {k: v[:, 0] for k, v in frames.items()}, cfg.int8_compute)
+    poses, trans = [], []
+    for t in range(T):
+        carry, (pose, tran) = step(params, carry,
+                                   {k: v[:, t] for k, v in frames.items()})
+        poses.append(pose)
+        trans.append(tran)
+    return torch.stack(poses, 1), torch.stack(trans, 1)
 
 
 class StreamingNet:

@@ -13,7 +13,9 @@ refinement stays with the caller, as in the JAX package.
 
 Frame flags ``first_frame`` and ``first_tran_valid`` are host booleans (the
 port's frames carry them on the host); everything else is a tensor on the
-frame's device.
+frame's device. :func:`tail_batched` is the same tail over a leading batch
+axis, for the batched step: there the flags are ``[B]`` bool tensors and
+every decision is a ``torch.where``, as under ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..math.spatial import mat3_mul
 from . import _build
 
 __all__ = ["LAUNCHES", "PD_ROW", "BODY_WORDS", "tail_constants", "tail_plain",
-           "geometry_tail", "sync_mp3d"]
+           "tail_batched", "geometry_tail", "sync_mp3d"]
 
 # kernel launches so far (one per call on CUDA tensors)
 LAUNCHES = 0
@@ -42,13 +44,14 @@ BODY_WORDS = 1060
 
 
 def sync_mp3d(vert_mp: torch.Tensor, joint: torch.Tensor) -> torch.Tensor:
-    r"""The 33 MediaPipe 3-D landmarks from the gathered mask vertices, with
-    limbs, hips, knees and ankles overwritten by the joint positions."""
+    r"""The 33 MediaPipe 3-D landmarks from the gathered mask vertices
+    ``[..., 33, 3]``, with limbs, hips, knees and ankles overwritten by the
+    joint positions ``[..., 24, 3]``."""
     syn = vert_mp.clone()
-    syn[11:17] = joint[16:22]
-    syn[23:25] = joint[1:3]
-    syn[25:27] = joint[4:6]
-    syn[27:29] = joint[7:9]
+    syn[..., 11:17, :] = joint[..., 16:22, :]
+    syn[..., 23:25, :] = joint[..., 1:3, :]
+    syn[..., 25:27, :] = joint[..., 4:6, :]
+    syn[..., 27:29, :] = joint[..., 7:9, :]
     return syn
 
 
@@ -191,6 +194,120 @@ def tail_plain(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
         if cfg.live:
             fk_now = vision_count == 0
             j_lm = torch.where(fk_now, j_computed, j_temp)
+            j_temp = j_lm
+            vision_count = torch.where(
+                fk_now, torch.full_like(vision_count, cfg.update_vision_freq),
+                vision_count - 1)
+        else:
+            j_lm = j_computed
+
+    return {"contact": contact, "pose": pose, "tran": tran, "pfoot": pfoot,
+            "floor_buf": floor_buf, "floor_cnt": floor_cnt,
+            "vision_count": vision_count, "j_temp": j_temp, "joint": joint,
+            "j_lm": j_lm}
+
+
+def tail_batched(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
+                 k_lerp):
+    r""":func:`tail_plain` over a leading batch axis: ``out7 [B, 144]``,
+    ``c [B]``, ``Rcr [B, 3, 3]``, the carry's and frame's fields with a
+    leading ``B``, and ``frame["first_frame"]``/``["first_tran_valid"]``
+    as ``[B]`` bool tensors. Returns the same dict, every field with a
+    leading ``B``."""
+    B = out7.shape[0]
+    conf_hi = cfg.conf_range[1]
+    ct = cfg.contact_threshold
+    parent = consts["parent"]
+    contact = torch.sigmoid(out8)
+    full = c >= conf_hi
+
+    # -- pose: r6d -> global R -> local pose, root := Rcr
+    poseg = r6d_to_rotation_matrix(out7).reshape(B, 24, 3, 3)
+    parent_R = poseg[:, parent]
+    pose = torch.cat([Rcr[:, None], mat3_mul(parent_R.transpose(-1, -2),
+                                             poseg)[:, 1:]], 1)
+
+    # -- light FK: pb[i] = R_glb[parent[i]] @ bone[i], ancestor prefix sum
+    pb = (parent_R * consts["bone"][:, None, :]).sum(-1)
+    pb = torch.cat([torch.zeros_like(pb[:, :1]), pb[:, 1:]], 1)
+    p_all = (consts["anc"][:, :, None] * pb[:, None, :, :]).sum(2)
+
+    # -- translation from contacts / network velocity
+    pfoot = (p_all[:, 10:12, None, :] * Rcr[:, None]).sum(-1)
+    cmax = contact.amax(-1)
+    v_net = (Rcr * vr.reshape(B, 1, 3)).sum(-1) * (VEL_SCALE / 60.0)
+    d_foot = carry["last_pfoot"] - pfoot
+    v_contact = torch.where((contact[:, 0] >= contact[:, 1])[:, None],
+                            d_foot[:, 0], d_foot[:, 1])
+    use_net = (cmax < ct) | ~carry["has_pfoot"]
+    v = torch.where(use_net[:, None], v_net, v_contact)
+    tran = torch.where(carry["has_tran"][:, None], carry["last_tran"] + v, v)
+
+    # -- visual absolute-position fusion
+    snap_far = (torch.linalg.vector_norm(pc - tran, dim=-1)
+                > cfg.distance_threshold) | (cfg.tran_filter_num > 1)
+    tran_vis = torch.where(snap_far[:, None], pc,
+                           lerp(tran, pc, cfg.tran_filter_num
+                                * k_lerp[:, None]))
+    tran = torch.where(full[:, None], tran_vis, tran)
+
+    # -- flat-floor ring of contact heights (one-hot write) and its snap
+    floor_buf, floor_cnt = carry["floor_buf"], carry["floor_cnt"]
+    first_frame = frame["first_frame"]
+    first_tran_valid = frame["first_tran_valid"]
+    if cfg.use_flat_floor:
+        grav = frame["gravityc"]
+        p0 = ((pfoot[:, 0] + tran) * grav).sum(-1, keepdim=True) * grav
+        p1 = ((pfoot[:, 1] + tran) * grav).sum(-1, keepdim=True) * grav
+        n0 = torch.linalg.vector_norm(p0, dim=-1)
+        n1 = torch.linalg.vector_norm(p1, dim=-1)
+        lower = torch.where((n0 < n1)[:, None], p1, p0)
+        append = ((floor_cnt < 11) & (cmax > ct) & full & ~first_frame
+                  & ~first_tran_valid)
+        slot = ((consts["slots"] == floor_cnt[:, None])
+                & append[:, None])[:, :, None]
+        floor_buf = torch.where(slot, lower[:, None], floor_buf)
+        floor_cnt = floor_cnt + append.to(floor_cnt.dtype)
+
+        snap = (floor_cnt > 10) & (cmax > ct)
+        m = floor_buf[:, 5:11].mean(1)
+        use_p1 = (n0 < n1) & (torch.linalg.vector_norm(m - p1, dim=-1)
+                              < cfg.height_threshold)
+        near_p0 = torch.linalg.vector_norm(m - p0, dim=-1) \
+            < cfg.height_threshold
+        delta = torch.where(use_p1[:, None], m - p1,
+                            torch.where(near_p0[:, None], m - p0,
+                                        torch.zeros_like(m)))
+        tran = torch.where(snap[:, None], tran + delta, tran)
+
+    # -- first-frame overrides
+    tran = torch.where(first_tran_valid[:, None], frame["first_tran"],
+                       torch.where(first_frame[:, None], pc, tran))
+
+    # -- landmarks: closed-form FK of the root-fixed pose + 33-vertex LBS
+    vision_count = carry["vision_count"]
+    j_temp = carry["j_temp"]
+    joint = tran.new_zeros((B, 24, 3))
+    j_lm = tran.new_zeros((B, 33, 3))
+    if cfg.use_reproj_opt or cfg.use_vision_updater:
+        rfix = mat3_mul(Rcr, poseg[:, 0].transpose(-1, -2))
+        glb = mat3_mul(rfix[:, None], poseg)
+        joint = (p_all[:, :, None, :] * rfix[:, None]).sum(-1) \
+            + tran[:, None]
+        t_j = joint - (glb * consts["j0"][:, None, :]).sum(-1)
+        w_sub = consts["wsub"]
+        R_v = torch.einsum("vj,bjrc->bvrc", w_sub, glb)
+        v0_eff = consts["v0sub"]
+        if consts["blendshape"]:
+            eye = torch.eye(3, dtype=pose.dtype, device=pose.device)
+            r = (pose[:, 1:] - eye).reshape(B, -1)             # [B, 207]
+            v0_eff = v0_eff + torch.einsum("cpv,bp->bvc", consts["pd"], r)
+        verts = (R_v * v0_eff[..., None, :]).sum(-1) \
+            + torch.einsum("vj,bjc->bvc", w_sub, t_j)
+        j_computed = sync_mp3d(verts, joint)
+        if cfg.live:
+            fk_now = vision_count == 0
+            j_lm = torch.where(fk_now[:, None, None], j_computed, j_temp)
             j_temp = j_lm
             vision_count = torch.where(
                 fk_now, torch.full_like(vision_count, cfg.update_vision_freq),

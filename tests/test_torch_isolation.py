@@ -9,6 +9,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +26,8 @@ def _submodules():
 
 
 # Drives what the port added for the bf16/int8 weights in the same process:
-# quantization, the int8 step, and the serve path in its three modes.
+# quantization, the int8 step, and the serve path in its three modes; then
+# the batched step and the offline evaluation on a fixture corpus.
 _DRIVE = """
 import torch
 from robustcap_tpu_torch.config import SigMPConfig
@@ -56,6 +58,22 @@ for w, int8 in ((p, False), (rnn.cast_params(p, torch.bfloat16), False),
                                  SigMPConfig(int8_compute=int8), frames,
                                  sig_mp.init_carry(w))[0]
     assert torch.isfinite(pose).all(), prepped["mode"]
+import warnings
+from robustcap_tpu_torch.eval import (build_aist_sequences,
+                                      evaluate_sequences, run_sequences,
+                                      stack_frames)
+from robustcap_tpu_torch.preprocess import build_fixture_dataset
+seqs = build_aist_sequences(build_fixture_dataset(model, n_seq=1, T=6,
+                                                  n_cam=2, seed=1))
+pose, tran = sig_mp.forward_offline_batched(p, model, cfg8,
+                                            stack_frames(seqs, 8),
+                                            device="cpu")
+assert tuple(pose.shape) == (2, 8, 24, 3, 3)
+assert len(run_sequences(q, model, cfg8, seqs, device="cpu")) == 2
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    out = evaluate_sequences(seqs, p, model, pad_to_multiple=4, device="cpu")
+assert out["mpjpe"] == out["mpjpe"], out
 """
 
 
@@ -125,6 +143,25 @@ def test_entry_points_default_to_the_card(monkeypatch):
         sig_mp.init_params(torch.Generator().manual_seed(0), SMALL_SPECS)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({"w": [[1.0]]}, "cuda")
+    from robustcap_tpu_torch.eval import (EvalSequence, evaluate_sequences,
+                                          run_sequences)
+    frames = {"j2dc": torch.zeros(1, 2, 33, 3),
+              "accc": torch.zeros(1, 2, 6, 3),
+              "oric": torch.eye(3).expand(1, 2, 6, 3, 3),
+              "first_tran": torch.zeros(1, 2, 3),
+              "gravityc": torch.zeros(1, 2, 3),
+              "first_frame": torch.zeros(1, 2, dtype=torch.bool),
+              "first_tran_valid": torch.zeros(1, 2, dtype=torch.bool)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sig_mp.forward_offline_batched(params, model, SigMPConfig(), frames)
+    z = torch.zeros(2, 33, 3).numpy()
+    seq = EvalSequence("s", z, z, z[:, :6], np.zeros((2, 6, 3, 3)),
+                       np.zeros((2, 24, 3, 3)), z[:, 0], z[:, 0],
+                       np.eye(3), None, True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sequences(params, model, SigMPConfig(), [seq])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_sequences([seq], params, model)
 
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])
