@@ -57,7 +57,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (the batched runner), and ``serve_end_metric_deltas`` in bf16 and int8,
    whose single-stream runs go through the serve kernel (its launches of
    this phase are counted into the kernel line) and whose MPJPE, PVE and
-   PA-MPJPE must stay within ``END_METRIC_BOUND_MM`` (2 mm) of float32.
+   PA-MPJPE must stay within ``END_METRIC_BOUND_MM`` (2 mm) of float32;
+8. serving (``serving.py``, ``streaming/``): bundles exported with
+   ``pallas_serve`` and chunk programs of 128 and 256 frames in f32, bf16
+   and int8, loaded afresh (export and load seconds, file sizes; ``step.pt2``
+   must not hold the weights); each bundle over a first frame and a 128-
+   and a 256-frame chunk, equal bit for bit to ``StreamingNet(pallas_serve)``
+   from the same carry (the serve kernel through ``robustcap::serve_scan``;
+   its launches counted into the kernel line); ``forward_online`` over 256
+   frames replayed through a CUDA graph against the eager exported step
+   (within ``GRAPH_BOUND``), timed beside the eager ``StreamingNet``; the f32
+   bundle against the plain ``StreamingNet`` within phase 4's bounds; the
+   multiplexer at capacity 8 for 128 ticks, one slot reset at tick 64, each
+   row against its own plain ``StreamingNet`` within phase 4's bounds, and
+   its tick timed graphed and eager at capacity 8 and 64; the latency
+   harness over 600 frames with ``live_mode()`` and the tail kernel (its
+   launches counted) and with the kernels off; the live server over
+   loopback with the f32 bundle, 120 detector packets of a fixture
+   sequence, one frame back for each.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -1461,6 +1478,419 @@ def check_eval(params, model, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: serving on the card
+# ---------------------------------------------------------------------------
+
+BUNDLE_DIR = "_serving_bundles"     # gitignored, removed after the phase
+CHUNKS = (128, 256)
+GRAPH_BOUND = 1e-6    # a graph replays the same kernels on the same inputs
+STEP_FILE_MAX = 16 << 20   # step.pt2 holds the program, not the weights
+MUX_CAP, MUX_TICKS, MUX_RESET = 8, 128, (64, 3)   # reset slot 3 at tick 64
+LIVE_FRAMES = 120
+
+
+def _sync_time(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _device_busy(fn, n):
+    r"""``(kernels, device ms)`` per call of ``fn`` over ``n`` calls, from
+    ``torch.profiler``'s device-side events (each kernel and copy once),
+    or ``None`` where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events) / 1e3 / n
+    if busy <= 0:
+        return None
+    return sum(e.count for e in events) / n, busy
+
+
+def _busy_text(prof, host_ms):
+    if prof is None:
+        return "device time not measured (no device events)"
+    n, busy = prof
+    return (f"{n:.0f} kernels and copies, {busy:.3f} ms of device time a "
+            f"call (torch.profiler): device idle "
+            f"{max(0.0, 1 - busy / host_ms) * 100:.1f}%")
+
+
+def _export_and_load(mode, p, cfg, model, dev, root):
+    r"""Phase 8 (a): one bundle exported and loaded, with its seconds and
+    file sizes printed; ``step.pt2`` must not hold the weights."""
+    from robustcap_tpu_torch.serving import (ServingBundle,
+                                             export_serving_bundle)
+    path = os.path.join(root, mode)
+    _, t_exp = _sync_time(lambda: export_serving_bundle(
+        p, model, cfg, path, chunk_len=CHUNKS[0],
+        extra_chunk_lens=CHUNKS[1:], device=dev))
+    bundle, t_load = _sync_time(lambda: ServingBundle.load(path, device=dev))
+    sizes = {f: os.path.getsize(os.path.join(path, f))
+             for f in sorted(os.listdir(path))}
+    print(f"[serving] {mode} bundle: export {t_exp:.2f} s, load {t_load:.2f} "
+          f"s; files (bytes) {sizes}", flush=True)
+    _require(sizes["step.pt2"] < min(STEP_FILE_MAX, sizes["weights.pt"] / 8),
+             f"{mode} bundle: step.pt2 ({sizes['step.pt2']} bytes) grows "
+             "with the weights")
+    return bundle
+
+
+def _bundle_chunks(mode, bundle, p, cfg, model, dev, stream):
+    r"""Phase 8 (b): a first frame (seeded as ``run_stream`` seeds it), then
+    the 128- and 256-frame chunk programs, each bit for bit
+    ``StreamingNet(pallas_serve)`` from the same carry. Returns the
+    stream's outputs and the serve launches."""
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import serve_scan
+    from robustcap_tpu_torch.serving import _unbatch
+    first, chunks = stream
+    bundle.reset_states()
+    pose0, tran0 = bundle.forward_online(first[0][0], first[1][0],
+                                         first[2][0],
+                                         first_tran=np.zeros(3, np.float32),
+                                         first_frame=True)
+    net = sig_mp.StreamingNet(p, model, cfg, device=dev)
+    net.carry = tree_map(torch.clone, _unbatch(bundle.carry))
+    outs, times = [(pose0[None], tran0[None])], []
+    serve_scan.LAUNCHES = 0
+    for _, chunk in chunks:
+        out, sec = _sync_time(lambda: bundle.forward_chunk(*chunk))
+        outs.append(out)
+        times.append(sec)
+    launches = serve_scan.LAUNCHES
+    _require(launches == len(chunks), f"{mode} bundle: {launches} serve "
+             f"launches over {len(chunks)} chunk programs")
+    for (_, chunk), got in zip(chunks, outs[1:]):
+        want = net.forward_chunk(*chunk)
+        _require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                 f"{mode} bundle: a {len(chunk[0])}-frame chunk program "
+                 "differs from StreamingNet(pallas_serve) on the same carry")
+    print(f"[serving] {mode} bundle chunks "
+          + ", ".join(f"{len(c[0])} frames {t * 1e3:.3f} ms"
+                      for (_, c), t in zip(chunks, times))
+          + f" (host clock, synchronized; {launches} serve launches), equal "
+          "bit for bit to StreamingNet(pallas_serve)", flush=True)
+    return tuple(torch.cat(x).cpu() for x in zip(*outs)), launches
+
+
+def _bundle_online(mode, bundle, p, cfg, model, dev, seq):
+    r"""Phase 8 (c): ``forward_online`` over the sequence, graphed, against
+    the eager exported step; the three ways timed (host clock,
+    synchronized, the frames after the first). Returns the graphed
+    outputs."""
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.serving import _online_frame
+    j2, ac, orc = seq
+    T = len(j2)
+
+    def graphed():
+        return [bundle.forward_online(j2[t], ac[t], orc[t],
+                                      first_frame=t == 0) for t in range(T)]
+
+    def eager():
+        carry = sig_mp.init_carry(bundle.params, batch_shape=(1,))
+        outs = []
+        for t in range(T):
+            frame = tree_map(lambda x: x.to(dev), _online_frame(
+                j2[t], ac[t], orc[t], first_frame=t == 0))
+            if t == 0:
+                carry = bundle.prescan_fn(bundle.scan_params, carry, frame)
+            carry, (pose, tran) = bundle.step_fn(bundle.scan_params, carry,
+                                                 frame)
+            outs.append((pose[0], tran[0]))
+        return outs
+
+    def streaming():
+        net = sig_mp.StreamingNet(p, model, cfg, device=dev)
+        return [net.forward_online(j2[t], ac[t], orc[t], first_frame=t == 0)
+                for t in range(T)]
+
+    bundle.reset_states()
+    res = {}
+    for name, fn in (("graphed step", graphed), ("eager exported step",
+                                                 eager),
+                     ("eager StreamingNet", streaming)):
+        outs, sec = _sync_time(fn)
+        res[name] = (tuple(torch.stack(x).cpu() for x in zip(*outs)), sec)
+    gap = max(_max_err(a, b) for a, b in zip(res["graphed step"][0],
+                                             res["eager exported step"][0]))
+    prof = _device_busy(lambda: bundle.forward_online(j2[1], ac[1], orc[1]),
+                        16)
+    print(f"[serving] {mode} forward_online, {T} frames: "
+          + ", ".join(f"{k} {sec / T * 1e3:.3f} ms/frame"
+                      for k, (_, sec) in res.items())
+          + f" (host clock, synchronized, graph captured before); graphed vs "
+          f"eager exported max abs {gap:.3e} (bound {GRAPH_BOUND:.0e}); "
+          "graphed frame: " + _busy_text(
+              prof, res["graphed step"][1] / T * 1e3), flush=True)
+    _require(gap <= GRAPH_BOUND, f"{mode} bundle: graphed and eager steps "
+             f"differ by {gap:.3e}")
+    return res["graphed step"][0]
+
+
+def _check_multiplexer(params, model, dev):
+    r"""Phase 8 (d): capacity 8 for 128 ticks over 8 mixed streams, slot 3
+    reset at tick 64 with a new first frame, each row held against its own
+    plain ``StreamingNet``; ms per tick, eager and graphed, at capacity 8
+    and 64."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.nn.rnn import prepare_scan_params
+    from robustcap_tpu_torch.streaming import StreamingMultiplexer
+    cfg = SigMPConfig()
+    tick_r, slot_r = MUX_RESET
+    streams = [_stream_inputs(30 + k, _mixed(MUX_TICKS, 30 + k))
+               for k in range(MUX_CAP)]
+    late = _stream_inputs(40, _mixed(MUX_TICKS - tick_r, 40))
+    mux = StreamingMultiplexer(params, model, cfg, capacity=MUX_CAP,
+                               device=dev)
+    _require([mux.open_slot() for _ in range(MUX_CAP)]
+             == list(range(MUX_CAP)), "multiplexer slots out of order")
+    poses, trans = [], []
+    for t in range(MUX_TICKS):
+        rows = [s if not (k == slot_r and t >= tick_r) else None
+                for k, s in enumerate(streams)]
+        first = np.zeros(MUX_CAP, bool)
+        if t == tick_r:
+            mux.close_slot(slot_r)
+            _require(mux.open_slot() == slot_r, "the reset slot moved")
+            first[slot_r] = True
+        first |= t == 0
+        batch = [np.stack([(r[i][t] if r is not None else
+                            late[i][t - tick_r]) for r in rows])
+                 for i in range(3)]
+        pose, tran = mux.step(*batch, first_frame=first if first.any()
+                              else None)
+        poses.append(pose)
+        trans.append(tran)
+    poses, trans = np.stack(poses), np.stack(trans)
+    ok = True
+    refs = [(k, 0, s) for k, s in enumerate(streams)] + [(slot_r, tick_r,
+                                                          late)]
+    for k, t0, (j2, ac, orc) in refs:
+        t1 = tick_r if (k == slot_r and t0 == 0) else MUX_TICKS
+        net = sig_mp.StreamingNet(params, model, cfg, device=dev)
+        outs = [net.forward_online(j2[t], ac[t], orc[t], first_frame=t == 0)
+                for t in range(t1 - t0)]
+        ref = tuple(torch.stack(x).cpu() for x in zip(*outs))
+        got = (torch.from_numpy(poses[t0:t1, k]),
+               torch.from_numpy(trans[t0:t1, k]))
+        ok &= _compare(f"multiplexer row {k}, ticks {t0}-{t1 - 1}, vs plain "
+                       "StreamingNet (card)", got, ref)
+    _require(ok, "multiplexer rows outside their bounds")
+
+    sp = prepare_scan_params(params, cfg.int8_compute)
+    step = sig_mp.make_batched_step(model, cfg)
+    for cap in (MUX_CAP, 64):
+        m = StreamingMultiplexer(params, model, cfg, capacity=cap, device=dev)
+        ins = [_stream_inputs(50 + k, _mixed(9, 50 + k)) for k in range(cap)]
+        batch = [lambda t, i=i: np.stack([s[i][t] for s in ins])
+                 for i in range(3)]
+        m.step(*(b(0) for b in batch), first_frame=np.ones(cap, bool))
+        m.step(*(b(1) for b in batch))
+        _, g_sec = _sync_time(lambda: [m.step(*(b(t) for b in batch))
+                                       for t in range(2, 9)])
+        prof = _device_busy(lambda: m.step(*(b(8) for b in batch)), 8)
+        frames = {k: v.to(dev) for k, v in {
+            "j2dc": torch.from_numpy(batch[0](2)),
+            "accc": torch.from_numpy(batch[1](2)),
+            "oric": torch.from_numpy(batch[2](2)),
+            "first_tran": torch.zeros(cap, 3),
+            "gravityc": torch.from_numpy(np.tile(sig_mp.DEFAULT_GRAVITY,
+                                                 (cap, 1))),
+            "first_frame": torch.zeros(cap, dtype=torch.bool),
+            "first_tran_valid": torch.zeros(cap, dtype=torch.bool)}.items()}
+        carry = m.carries
+        step(sp, carry, frames)
+        _, e_sec = _sync_time(lambda: [step(sp, carry, frames)
+                                       for _ in range(7)])
+        print(f"[serving] multiplexer capacity {cap}: graphed tick "
+              f"{g_sec / 7 * 1e3:.3f} ms (frames up, pose and tran back to "
+              f"the host), eager step {e_sec / 7 * 1e3:.3f} ms (host clock, "
+              "synchronized); graphed tick: "
+              + _busy_text(prof, g_sec / 7 * 1e3), flush=True)
+
+
+def _check_latency(params, model, dev, root):
+    r"""Phase 8 (e): ``measure_streaming_latency`` with ``live_mode()`` and
+    the tail kernel, 600 frames, then with the kernels off; a short traced
+    run. Returns the tail launches."""
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.ops import geometry_tail
+    from robustcap_tpu_torch.streaming import measure_streaming_latency
+    on = dataclasses.replace(SigMPConfig.live_mode(), pallas_tail=True)
+    geometry_tail.LAUNCHES = 0
+    stats_on = measure_streaming_latency(params, model, cfg=on, n_frames=600,
+                                         device=dev)
+    launches = geometry_tail.LAUNCHES
+    _require(launches == 630, f"latency harness: {launches} tail launches, "
+             "expected one per frame (30 warm-up + 600)")
+    stats_off = measure_streaming_latency(params, model, n_frames=600,
+                                          device=dev)
+    for name, st in (("live_mode + pallas_tail", stats_on),
+                     ("live_mode, kernels off", stats_off)):
+        _require(all(np.isfinite(v) for v in st.values()),
+                 f"latency {name}: {st}")
+        print(f"[serving] latency {name}, 600 frames: p50 "
+              f"{st['p50_ms']:.3f} ms, p95 {st['p95_ms']:.3f}, p99 "
+              f"{st['p99_ms']:.3f}, mean {st['mean_ms']:.3f}, "
+              f"{st['fps']:.1f} fps (host clock, tran read back)", flush=True)
+    trace_dir = os.path.join(root, "trace")
+    measure_streaming_latency(params, model, cfg=on, n_frames=8, warmup=2,
+                              trace_dir=trace_dir, device=dev)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json.load(f)
+    kernels = sum(1 for e in trace.get("traceEvents", [])
+                  if e.get("cat") == "kernel")
+    print(f"[serving] latency trace of 8 frames: {kernels} kernel events",
+          flush=True)
+    _require(kernels > 0, "the latency trace holds no kernel event")
+    return launches
+
+
+def _check_live_server(bundle, model, dev):
+    r"""Phase 8 (f): ``run_live_demo`` in a thread on free local ports with
+    the bundle as its net; detector packets from a fixture sequence, one
+    frame back for each."""
+    import socket
+    import threading
+    from robustcap_tpu_torch.config import LiveConfig
+    from robustcap_tpu_torch.eval import build_aist_sequences
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.streaming import (encode_detector_packet,
+                                               parse_unity_frame,
+                                               run_live_demo)
+
+    def free(kind):
+        with socket.socket(socket.AF_INET, kind) as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    seq = build_aist_sequences(build_fixture_dataset(
+        model, n_seq=1, T=LIVE_FRAMES, n_cam=1, seed=EVAL_SEED),
+        num_cameras=1)[0]
+    live = LiveConfig(detector_udp_port=free(socket.SOCK_DGRAM),
+                      unity_tcp_port=free(socket.SOCK_STREAM))
+    server = threading.Thread(target=run_live_demo, daemon=True, kwargs=dict(
+        net=bundle, live=live, max_frames=LIVE_FRAMES, device=dev))
+    server.start()
+    unity, deadline = None, time.time() + 60
+    while unity is None:
+        try:
+            unity = socket.create_connection(
+                ("127.0.0.1", live.unity_tcp_port), timeout=10)
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.1)
+    rcm = np.eye(3, dtype=np.float32)
+    frames, buf = [], b""
+    with unity, socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+        unity.settimeout(60)
+        t0 = time.perf_counter()
+        for t in range(LIVE_FRAMES):
+            tx.sendto(encode_detector_packet(seq.j2dc[t], seq.oric[t],
+                                             seq.accc[t], rcm),
+                      ("127.0.0.1", live.detector_udp_port))
+            while b"$" not in buf:
+                chunk = unity.recv(65536)
+                _require(bool(chunk), "the live server closed the stream")
+                buf += chunk
+            frame, _, buf = buf.partition(b"$")
+            frames.append(parse_unity_frame(frame + b"$"))
+        sec = time.perf_counter() - t0
+    server.join(timeout=60)
+    _require(not server.is_alive(), "the live server did not stop")
+    _require(len(frames) == LIVE_FRAMES, f"live server: {len(frames)} "
+             f"frames back for {LIVE_FRAMES} packets")
+    trans = np.stack([f[1] for f in frames])
+    _require(np.isfinite(trans).all() and np.isfinite(
+        np.stack([f[0] for f in frames])).all(), "live server: non-finite")
+    _require(float(np.abs(trans[0]).max()) <= 1e-4,
+             f"live server: first translation {trans[0]}, expected 0")
+    print(f"[serving] live server over loopback (bundle f32, graphed): "
+          f"{LIVE_FRAMES} packets -> {len(frames)} frames, first translation "
+          f"{trans[0].tolist()}, {LIVE_FRAMES / sec:.1f} fps (packet out to "
+          "frame back, one at a time)", flush=True)
+
+
+def check_serving(params, model, dev):
+    r"""Phase 8: serving bundles in f32, bf16 and int8 exported and loaded
+    (a), their chunk programs against ``StreamingNet(pallas_serve)`` (b),
+    ``forward_online`` graphed against eager (c), the multiplexer (d), the
+    latency harness (e), the live server over loopback (f). Returns the
+    phase's serve launches by mode and its tail launches."""
+    import shutil
+
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        BUNDLE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    t_start = time.perf_counter()
+    launches, bundles = {}, {}
+    stream = (_stream_inputs(21, [0.95]),
+              [(f"chunk {K}", _stream_inputs(21 + K, _mixed(K, 21 + K)))
+               for K in CHUNKS])
+    seq = _stream_inputs(24, _mixed(256, 24))
+    try:
+        for mode, p, mode_cfg in _serve_modes(params):
+            cfg = dataclasses.replace(mode_cfg, pallas_serve=True)
+            bundle = _export_and_load(mode, p, cfg, model, dev, root)
+            bundles[mode] = bundle
+            out, n = _bundle_chunks(mode, bundle, p, cfg, model, dev, stream)
+            launches["serve_scan" if mode == "f32"
+                     else f"serve_scan_{mode}"] = n
+            online = _bundle_online(mode, bundle, p, mode_cfg, model, dev,
+                                    seq)
+            if mode == "f32":
+                plain, _ = run_stream(sig_mp.StreamingNet(
+                    params, model, SigMPConfig(), device=dev), stream[0],
+                    stream[1])
+                ok = _compare("f32 bundle, first frame + chunks vs plain "
+                              "StreamingNet (card)", out, plain, CHUNKS)
+                net = sig_mp.StreamingNet(params, model, SigMPConfig(),
+                                          device=dev)
+                ref = [net.forward_online(seq[0][t], seq[1][t], seq[2][t],
+                                          first_frame=t == 0)
+                       for t in range(len(seq[0]))]
+                ok &= _compare("f32 bundle, forward_online graphed vs plain "
+                               "StreamingNet (card)", online,
+                               tuple(torch.stack(x).cpu() for x in zip(*ref)),
+                               (64, 128, 256))
+                _require(ok, "f32 bundle outside its bounds")
+        _check_multiplexer(params, model, dev)
+        launches["geometry_tail"] = _check_latency(params, model, dev, root)
+        _check_live_server(bundles["f32"], model, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[serving] phase 8 in {time.perf_counter() - t_start:.1f} s; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1506,6 +1936,8 @@ def main():
     check_batched(params, model, dev)
     for key, n in check_eval(params, model, dev).items():
         launches[key] += n
+    for key, n in check_serving(params, model, dev).items():
+        launches[key] += n
 
     kernels = [
         dict(name="lstm_scan", route="cuda",
@@ -1522,7 +1954,7 @@ def main():
     ]
     kernels += [
         dict(name="serve_scan" if mode == "f32" else f"serve_scan_{mode}",
-             mode=mode, route="cuda",
+             mode=mode, route="cuda", operator="robustcap::serve_scan",
              source="robustcap_tpu_torch/csrc/serve_scan.cu",
              replaces="robustcap_tpu/ops/pallas_serve.py:930",
              launches=launches["serve_scan" if mode == "f32"

@@ -8,7 +8,14 @@ PyTorch version instead.
 
 Ported so far: the single-stream SigMP path (``models.sig_mp``:
 ``forward_offline`` and ``StreamingNet``) with the LSTM-scan kernel
-(``ops.lstm_scan``) and the geometry-tail kernel (``ops.geometry_tail``).
+(``ops.lstm_scan``), the geometry-tail kernel (``ops.geometry_tail``) and the
+serve kernel (``ops.serve_scan``, the operator ``robustcap::serve_scan``);
+the batched path (``forward_offline_batched``) and the offline evaluation
+(``eval``); serving and streaming: exported serving bundles (``serving``),
+CUDA-graph replay of the per-frame step (``graphs``), the multiplexer, the
+live server, the latency harness and the wire formats (``streaming``), and
+the ``export``, ``latency`` and ``live-server`` commands
+(``python -m robustcap_tpu_torch``).
 """
 
 __version__ = "0.1.0"

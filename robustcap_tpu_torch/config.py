@@ -12,7 +12,7 @@ import os
 from typing import Tuple
 
 __all__ = [
-    "Paths", "paths", "SigMPConfig", "EVAL_PROFILES",
+    "Paths", "paths", "SigMPConfig", "EVAL_PROFILES", "LiveConfig",
     "PW3D_OCCLUDED_SEQUENCES", "VEL_SCALE", "TRAN_OFFSET", "MP_VERTEX_MASK",
     "IMU_VERTEX_MASK", "IMU_JOINT_MASK", "SMPL_PARENT",
 ]
@@ -153,6 +153,27 @@ EVAL_PROFILES = {
     "pw3d_occ": dict(config=SigMPConfig(use_flat_floor=False),
                      first_tran_mode="gt", num_cameras=1),
 }
+
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveConfig:
+    r"""Live capture hardware and the live pipeline's ports (the JAX
+    package's ``LiveConfig``)."""
+    camera_intrinsic: Tuple = ((623.79949084, 0.0, 313.69863974),
+                               (0.0, 623.09646347, 236.76807598),
+                               (0.0, 0.0, 1.0))
+    camera_height: int = 480
+    camera_width: int = 640
+    camera_id: int = 0
+    imu_addrs: Tuple[str, ...] = (
+        "D4:22:CD:00:36:03", "D4:22:CD:00:44:6E", "D4:22:CD:00:45:E6",
+        "D4:22:CD:00:45:EC", "D4:22:CD:00:46:0F", "D4:22:CD:00:32:32")
+    fps: int = 60
+    imu_udp_port: int = 8777
+    detector_udp_port: int = 9999
+    unity_tcp_port: int = 8888
+
 
 # 3DPW sequences with significant occlusion
 PW3D_OCCLUDED_SEQUENCES = [

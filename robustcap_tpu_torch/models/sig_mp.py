@@ -62,12 +62,11 @@ from ..device import resolve_device, tree_map
 from ..math.general import lerp
 from ..math.spatial import mat3_mul
 from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
-                      is_quantized, prepare_scan_params, rnn_step)
+                      prepare_scan_params, rnn_step)
 from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_batched,
                                  tail_constants, tail_plain)
 from ..ops.lstm_scan import prepare_lstm_scan, rnn_scan_chunked
-from ..ops.serve_scan import (check_serve_cfg, prepare_serve_params,
-                              serve_scan)
+from ..ops.serve_scan import check_serve_cfg, serve_params_for, serve_scan
 
 __all__ = [
     "RNN_SPECS", "DEFAULT_GRAVITY", "init_params", "init_carry", "make_frame",
@@ -793,9 +792,9 @@ def forward_offline(params, body_model, cfg, j2dc, accc, oric,
     carry = prescan_first_frame(params, body_model, init_carry(params),
                                 _frame_at(frames, 0), cfg.int8_compute)
     if cfg.pallas_serve:
-        prepped = prepare_serve_params(params, int8_gates=cfg.int8_compute)
         pose, tran, contact, _ = serve_scan(
-            prepped, tail_constants(body_model), cfg, frames, carry)
+            serve_params_for(params, cfg), tail_constants(body_model), cfg,
+            frames, carry)
         return (pose, tran, contact) if return_contacts else (pose, tran)
     step = make_step(body_model, cfg, include_first_frame_step=False,
                      output_contacts=return_contacts, cond_updater=True,
@@ -883,9 +882,8 @@ class StreamingNet:
                           for n in ("rnn2", "rnn3")}
         self._serve = None
         if cfg.pallas_serve:
-            self._serve = (prepare_serve_params(
-                params, torch.bfloat16 if is_quantized(params) else None,
-                int8_gates=cfg.int8_compute), tail_constants(body_model))
+            self._serve = (serve_params_for(params, cfg),
+                           tail_constants(body_model))
         self.reset_states()
 
     def reset_states(self):

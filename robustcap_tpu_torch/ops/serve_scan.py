@@ -7,10 +7,24 @@ rnn2, rnn3 and the speculative rnn7/rnn8 heads, the speculative tail, the
 occluded-frame refeed of rnn4/rnn6, the confidence gate, the final heads and
 tail, the one-shot IMU-updater rewrite and the live throttle, with the
 semantics of ``make_step(include_first_frame_step=False,
-cond_updater=False)``. On a CUDA tensor it is one launch of the hand-written
-kernel ``csrc/serve_scan.cu``; on a CPU tensor it runs the plain version,
-:func:`serve_scan_plain`, a frame loop of that step. There is no other
-fallback: on any other device, or when the kernel cannot launch, it raises.
+cond_updater=False)``. It reaches the kernel through one custom operator,
+``torch.ops.robustcap.serve_scan`` (``torch.library``), so that
+``torch.export`` can hold it (``serving.py``): on a CUDA tensor the operator
+is one launch of the hand-written kernel ``csrc/serve_scan.cu``; on a CPU
+tensor it runs the plain version, :func:`serve_scan_plain`, a frame loop of
+that step, on the weights unpacked from the operator's inputs. There is no
+other fallback: on any other device, or when the kernel cannot launch, it
+raises.
+
+The operator takes flat lists: the packed bank (one byte buffer per stack,
+then rnn2's ``init_net``), the tail constants, the frame operands
+(:func:`_frame_operands`, first-frame flags included, as tensors), the
+carry's entries, and as static ints and floats the mode, the layout of the
+packed bank and the fields of ``cfg`` the kernel reads. It returns only
+what the kernel writes (outputs and the carry's updated entries);
+:func:`serve_scan` rebuilds the carry around them. The launch plan depends
+only on the mode, the bank's layout and the card, and is kept per key in
+``_PLANS``.
 
 The kernel takes the weights in one of three modes, as the JAX kernel does
 (:func:`prepare_serve_params`): float32; bfloat16 rows, each activation
@@ -38,15 +52,15 @@ import torch
 
 from ..math.spatial import mat3_mul
 from ..nn.rnn import (_dot_i8, _is_qtensor, dequantize_params,
-                      dequantize_tensor, quantize_activation,
+                      dequantize_tensor, is_quantized, quantize_activation,
                       quantize_tensor)
 from . import _build
 from .geometry_tail import PD_ROW
 
 __all__ = ["LAUNCHES", "MODES", "TS_SLOTS", "KINDS", "prepare_serve_params",
-           "pack_stack", "unpack_stack", "split_counts", "serve_plan",
-           "check_serve_cfg",
-           "serve_scan_plain", "serve_scan"]
+           "serve_params_for", "pack_stack", "unpack_stack", "split_counts",
+           "serve_plan", "check_serve_cfg", "serve_bank", "bank_layout",
+           "bank_prepped", "serve_scan_plain", "serve_scan", "serve_scan_op"]
 
 # kernel launches so far (one per chunk on CUDA tensors)
 LAUNCHES = 0
@@ -64,6 +78,9 @@ _SYN = 267      # synthetic keypoints: 99 + 99 + 69
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 _F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
+# (linear1/linear2 type, gate-matrix type) of each mode
+_MODE_TYPES = {"f32": (_F32, _F32), "bf16": (_BF16, _BF16),
+               "int8": (_BF16, _I8)}
 
 # phase kinds of a stack, in the order of the packed copy
 KINDS = ("linear1", "layer0", "layer1", "linear2")
@@ -165,13 +182,15 @@ def pack_stack(s):
     return (torch.cat([r.reshape(-1) for r in runs]), offsets, rec, lens)
 
 
-def unpack_stack(s):
+def unpack_stack(s, mode):
     r"""The torch-layout weights of a stack back from its packed copy
-    (``s["packed"]``): ``{"w1", "b1", "w_ih", "w_hh", "bias", "w2", "b2"}``
-    and in int8 mode ``"w_ih_s"``/``"w_hh_s"``; the inverse of
+    (``s["packed"]``; ``s["H"]``, ``s["in"]`` and ``s["out"]`` give its
+    sizes, ``mode`` its types): ``{"w1", "b1", "w_ih", "w_hh", "bias",
+    "w2", "b2"}`` and in int8 mode ``"w_ih_s"``/``"w_hh_s"``; the inverse of
     :func:`pack_stack`."""
     H, n_in, n_out = s["H"], s["in"], s["out"]
     buf, offsets, rec, lens = s["packed"]
+    dense_t, gate_t = _MODE_TYPES[mode]
 
     def run(k, n):
         return buf[offsets[k]:offsets[k] + n * rec[k]].view(n, rec[k])
@@ -181,12 +200,11 @@ def unpack_stack(s):
         w = r[:, :rec[k] - 16].contiguous().view(dtype)[:, :m]
         return w, r[:, rec[k] - 16:].contiguous().view(_F32)[:, 0]
 
-    gate_t = s["w_hh"][0].dtype
     hp = lens[1]
     es = torch.tensor([], dtype=gate_t).element_size()
     out = {"w_ih": [], "w_hh": [], "bias": [], "w_ih_s": [], "w_hh_s": []}
-    out["w1"], out["b1"] = rows(0, H, n_in, s["w1"].dtype)
-    out["w2"], out["b2"] = rows(3, n_out, H, s["w2"].dtype)
+    out["w1"], out["b1"] = rows(0, H, n_in, dense_t)
+    out["w2"], out["b2"] = rows(3, n_out, H, dense_t)
     for l in (1, 2):
         r = run(l, H)
         g = r[:, :8 * hp * es].contiguous().view(gate_t).view(H, 2, 4, hp)
@@ -362,22 +380,13 @@ def prepare_serve_params(params, dtype=None, int8_gates=False):
                 recs = [_gate_record(l[k]) for l in p["layers"]]
                 s[k] = [r["q"].contiguous() for r in recs]
                 s[k + "_s"] = [r["scale"][:, 0].contiguous() for r in recs]
-            gates = [{k: {"q": s[k][i], "scale": s[k + "_s"][i][:, None]}
-                      for k in ("w_ih", "w_hh")} for i in range(2)]
         else:
             for k in ("w_ih", "w_hh"):
                 s[k] = [dense(l[k]) for l in p["layers"]]
-            gates = [{k: s[k][i] for k in ("w_ih", "w_hh")}
-                     for i in range(2)]
         s["H"] = int(s["w_hh"][0].shape[1])
         s["packed"] = pack_stack(s)
         stacks[name] = s
-        plain[name] = {
-            "linear1": {"w": w1, "b": s["b1"]},
-            "layers": [dict(g, b_ih=b, b_hh=torch.zeros_like(b))
-                       for g, b in zip(gates, s["bias"])],
-            "linear2": {"w": w2, "b": s["b2"]},
-        }
+        plain[name] = _plain_stack(s)
     H = {n: stacks[n]["H"] for n in _STACKS}
     if not H["rnn2"] == H["rnn3"] == H["rnn7"] == H["rnn8"]:
         raise ValueError("serve kernel packs rnn2/3/7/8 state jointly; "
@@ -390,6 +399,34 @@ def prepare_serve_params(params, dtype=None, int8_gates=False):
         plain["rnn2"]["init_net"] = [{"w": w, "b": b} for w, b in init]
     return {"params": plain, "stacks": stacks, "init": init, "H": H,
             "mode": mode}
+
+
+def _plain_stack(s):
+    r"""One stack of the plain version's parameter tree from the kernel's
+    operands (:func:`prepare_serve_params` or :func:`unpack_stack`): the
+    summed gate bias under ``b_ih``, zeros under ``b_hh``, int8 gate
+    matrices as ``{"q", "scale"}`` records."""
+    if "w_ih_s" in s:
+        gates = [{k: {"q": s[k][i], "scale": s[k + "_s"][i][:, None]}
+                  for k in ("w_ih", "w_hh")} for i in range(2)]
+    else:
+        gates = [{k: s[k][i] for k in ("w_ih", "w_hh")} for i in range(2)]
+    return {
+        "linear1": {"w": s["w1"], "b": s["b1"]},
+        "layers": [dict(g, b_ih=b, b_hh=torch.zeros_like(b))
+                   for g, b in zip(gates, s["bias"])],
+        "linear2": {"w": s["w2"], "b": s["b2"]},
+    }
+
+
+def serve_params_for(params, cfg):
+    r"""The kernel's operands of ``params`` in the mode ``cfg`` picks, as
+    ``StreamingNet`` and a serving bundle pick it: the int8-gate mode under
+    ``cfg.int8_compute``, else bf16 for a quantized tree, else the weights'
+    own dtype."""
+    return prepare_serve_params(
+        params, torch.bfloat16 if is_quantized(params) else None,
+        int8_gates=cfg.int8_compute)
 
 
 def check_serve_cfg(cfg):
@@ -499,12 +536,31 @@ def _lib():
     return lib
 
 
+# plans made so far, by (mode, bank layout, init_net rows, device)
+_PLANS = {}
+
+
+def _layout(prepped):
+    r"""The bank's layout as ints: per stack (order of ``_STACKS``) its
+    input, hidden and output sizes, then the packed copy's offsets, record
+    bytes and row lengths per kind."""
+    out = []
+    for name in _STACKS:
+        s = prepped["stacks"][name]
+        _, offsets, rec, lens = s["packed"]
+        out += [s["in"], s["H"], s["out"], *offsets, *rec, *lens]
+    return out
+
+
 def _device_plan(prepped, dev):
-    r"""The plan of ``prepped`` for the card ``dev`` (one block per SM, all
-    of a block's dynamic shared memory) and its block table on the card,
-    made once and kept in ``prepped``."""
-    key = ("plan", dev.index)
-    if key not in prepped:
+    r"""The plan of ``prepped``'s bank for the card ``dev`` (one block per
+    SM, all of a block's dynamic shared memory) and its block table on the
+    card, made once per mode, bank layout and device and kept in
+    ``_PLANS``."""
+    init_rows = tuple(int(w.shape[0]) for w, _ in prepped["init"] or ())
+    key = (prepped["mode"], tuple(_layout(prepped)), init_rows, dev.type,
+           dev.index)
+    if key not in _PLANS:
         info = np.zeros(2, np.int32)
         with torch.cuda.device(dev):
             err = _lib().serve_scan_device_info(MODES.index(prepped["mode"]),
@@ -513,8 +569,16 @@ def _device_plan(prepped, dev):
             raise RuntimeError(f"serve_scan: reading the card's attributes "
                                f"failed: CUDA error {err}")
         plan = serve_plan(prepped, int(info[0]), int(info[1]))
-        prepped[key] = (plan, torch.as_tensor(plan["starts"]).to(dev))
-    return prepped[key]
+        _PLANS[key] = (plan, torch.as_tensor(plan["starts"]).to(dev))
+    return _PLANS[key]
+
+
+def _flags(x, dev):
+    r"""Per-frame first-frame flags as int32 on ``dev``: a tensor, or the
+    host booleans of ``models.sig_mp._sequence_frames``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=dev, dtype=torch.int32)
 
 
 def _frame_operands(cfg, frames):
@@ -525,7 +589,7 @@ def _frame_operands(cfg, frames):
     gravity."""
     from ..models.sig_mp import _bbox_center_normalize
     dev = frames["j2dc"].device
-    f32, i32 = torch.float32, torch.int32
+    f32 = torch.float32
     j2dc, accc, oric = frames["j2dc"], frames["accc"], frames["oric"]
     T = j2dc.shape[0]
     Rcr = oric[:, -1]
@@ -542,20 +606,158 @@ def _frame_operands(cfg, frames):
         "c": c,
         "k_lerp": torch.clamp((c - conf_lo) * (1.0 / (conf_hi - conf_lo)),
                               0.0, 1.0),
-        "ff": torch.as_tensor(np.asarray(frames["first_frame"]), dtype=i32
-                              ).to(dev),
-        "ftv": torch.as_tensor(np.asarray(frames["first_tran_valid"]),
-                               dtype=i32).to(dev),
+        "ff": _flags(frames["first_frame"], dev),
+        "ftv": _flags(frames["first_tran_valid"], dev),
         "first_tran": frames["first_tran"].to(f32),
         "grav": frames["gravityc"].to(f32),
     }
 
 
-def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
+# the operator's lists, in order: frame operands, tail constants (then
+# pd_rows with blendshapes), carry entries after the six stacks' (h, c)
+# (the kernel writes the first nine), static ints before the bank layout,
+# floats
+_FRAME_KEYS = ("in2", "raw72", "j2n", "j2r", "rcr", "c", "k_lerp", "ff",
+               "ftv", "first_tran", "grav")
+_CONST_KEYS = ("parent", "anc", "bone", "j0", "wsub", "v0sub")
+_CARRY_OUT = ("last_pfoot", "has_pfoot", "last_tran", "has_tran",
+              "floor_buf", "floor_cnt", "vision_count", "first_reach",
+              "j_temp")
+_CARRY_IN = _CARRY_OUT + ("pc_first", "out4_first")
+_INTS = ("mode", "use_imu_updater", "live", "update_vision_freq",
+         "use_flat_floor", "blendshape")
+_FLOATS = ("conf_lo", "conf_hi", "contact_threshold", "distance_threshold",
+           "tran_filter_num", "height_threshold")
+_N_OUT = 3 + 2 * len(_STACKS) + len(_CARRY_OUT)
+
+
+def serve_bank(prepped):
+    r"""The tensors of ``prepped``'s bank as the operator takes them: each
+    stack's packed copy (order of ``_STACKS``), then rnn2's ``init_net``
+    weights and biases."""
+    bank = [prepped["stacks"][n]["packed"][0] for n in _STACKS]
+    return bank + [t for wb in prepped["init"] or () for t in wb]
+
+
+def bank_layout(prepped):
+    r"""``(mode, layout)``: what :func:`bank_prepped` needs besides the
+    bank's tensors, as plain values."""
+    return prepped["mode"], _layout(prepped)
+
+
+def bank_prepped(mode, layout, bank):
+    r"""A prepared bank that :func:`serve_scan` takes, from the tensors of
+    :func:`serve_bank` and the values of :func:`bank_layout`; it holds the
+    packed copies only (no ``"params"`` for the plain version)."""
+    stacks = {}
+    for si, name in enumerate(_STACKS):
+        m = layout[15 * si:15 * (si + 1)]
+        stacks[name] = {"in": m[0], "H": m[1], "out": m[2],
+                        "packed": (bank[si], m[3:7], m[7:11], m[11:15])}
+    rest = bank[len(_STACKS):]
+    init = [(rest[i], rest[i + 1]) for i in range(0, len(rest), 2)] or None
+    return {"mode": mode, "stacks": stacks, "init": init}
+
+
+def _op_args(prepped, consts, cfg, frames, carry):
+    r"""The operator's arguments, all but ``timestamps``."""
+    blend = bool(consts["blendshape"])
+    weights = serve_bank(prepped)
+    const_list = [consts[k] for k in _CONST_KEYS]
+    if blend:
+        const_list.append(consts["pd_rows"])
+    fo = _frame_operands(cfg, frames)
+    carry_list = [t for n in _STACKS for t in carry["states"][n]]
+    carry_list += [carry[k] for k in _CARRY_IN]
+    meta = [MODES.index(prepped["mode"]), int(cfg.use_imu_updater),
+            int(cfg.live), int(cfg.update_vision_freq),
+            int(cfg.use_flat_floor), int(blend)] + _layout(prepped)
+    conf_lo, conf_hi = cfg.conf_range
+    flts = [float(conf_lo), float(conf_hi), float(cfg.contact_threshold),
+            float(cfg.distance_threshold), float(cfg.tran_filter_num),
+            float(cfg.height_threshold)]
+    return (weights, const_list, [fo[k] for k in _FRAME_KEYS], carry_list,
+            meta, flts)
+
+
+def _unflatten(weights, consts, frame_ops, carry, meta, flts):
+    r"""The operator's arguments back as ``(prepped, consts, cfg, frame
+    operands, carry)`` dicts; the bank stays packed (``prepped`` has no
+    ``"params"``)."""
+    from ..config import SigMPConfig
+    ints = dict(zip(_INTS, meta))
+    mode = MODES[ints["mode"]]
+    prepped = bank_prepped(mode, meta[len(_INTS):], weights)
+    f = dict(zip(_FLOATS, flts))
+    cfg = SigMPConfig(conf_range=(f["conf_lo"], f["conf_hi"]),
+                      contact_threshold=f["contact_threshold"],
+                      distance_threshold=f["distance_threshold"],
+                      tran_filter_num=f["tran_filter_num"],
+                      height_threshold=f["height_threshold"],
+                      use_imu_updater=bool(ints["use_imu_updater"]),
+                      live=bool(ints["live"]),
+                      update_vision_freq=ints["update_vision_freq"],
+                      use_flat_floor=bool(ints["use_flat_floor"]),
+                      int8_compute=mode == "int8")
+    cd = dict(zip(_CONST_KEYS, consts))
+    cd["blendshape"] = bool(ints["blendshape"])
+    cd["pd_rows"] = consts[len(_CONST_KEYS)] if cd["blendshape"] else None
+    n = 2 * len(_STACKS)
+    states = {name: (carry[2 * i], carry[2 * i + 1])
+              for i, name in enumerate(_STACKS)}
+    carry_d = dict(zip(_CARRY_IN, carry[n:]), states=states)
+    return prepped, cd, cfg, dict(zip(_FRAME_KEYS, frame_ops)), carry_d
+
+
+def _serve_scan_cpu(weights, consts, frame_ops, carry, meta, flts,
+                    timestamps):
+    r"""The operator on CPU tensors: :func:`serve_scan_plain` on the
+    weights unpacked from the bank."""
+    if timestamps is not None:
+        raise ValueError("timestamps come from the kernel on the card")
+    prepped, cd, cfg, fo, carry_d = _unflatten(
+        weights, consts, frame_ops, carry, meta, flts)
+    mode = prepped["mode"]
+    plain = {n: _plain_stack(unpack_stack(s, mode))
+             for n, s in prepped["stacks"].items()}
+    if prepped["init"] is not None:
+        plain["rnn2"]["init_net"] = [{"w": w, "b": b}
+                                     for w, b in prepped["init"]]
+    cd["slots"] = torch.arange(11)
+    cd["pd"] = None
+    if cd["blendshape"]:
+        n_v = cd["wsub"].shape[0]
+        cd["pd"] = cd["pd_rows"][:, :207].reshape(3, n_v, 207).permute(
+            0, 2, 1)
+    # the frames as serve_scan_plain takes them, host copies included
+    T = fo["c"].shape[0]
+    frames = {"j2dc": fo["j2r"].reshape(T, 33, 3),
+              "accc": fo["raw72"][:, :18].reshape(T, 6, 3),
+              "oric": fo["raw72"][:, 18:].reshape(T, 6, 3, 3),
+              "first_tran": fo["first_tran"], "gravityc": fo["grav"],
+              "c": fo["c"], "conf": fo["c"].numpy(),
+              "first_frame": fo["ff"].numpy().astype(bool),
+              "first_tran_valid": fo["ftv"].numpy().astype(bool)}
+    pose, tran, contact, new = serve_scan_plain(
+        {"params": plain, "mode": mode}, cd, cfg, frames, carry_d)
+    outs = [pose, tran, contact]
+    outs += [t for n in _STACKS for t in new["states"][n]]
+    outs += [new[k].to(carry_d[k].dtype) for k in _CARRY_OUT]
+    # fresh tensors: an operator's output may not alias an input
+    return tuple(t.clone(memory_format=torch.contiguous_format)
+                 for t in outs)
+
+
+def _serve_scan_cuda(weights, consts, frame_ops, carry, meta, flts,
+                     timestamps):
+    r"""The operator on CUDA tensors: one launch of the kernel. (The g++
+    stand-in tests run it on CPU tensors through :func:`_launch`.)"""
     global LAUNCHES
-    dev = frames["j2dc"].device
+    prepped, cd, cfg, fo, carry_d = _unflatten(
+        weights, consts, frame_ops, carry, meta, flts)
+    dev = fo["c"].device
     f32, i32 = torch.float32, torch.int32
-    T = int(frames["j2dc"].shape[0])
+    T = int(fo["c"].shape[0])
     if T < 1:
         raise ValueError("serve_scan needs at least one frame")
     keep = []   # every tensor whose pointer the kernel gets
@@ -576,7 +778,7 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
     mode = prepped["mode"]
     plan, table = _device_plan(prepped, dev)
     ptrs, ints = [], [MODES.index(mode)]
-    states, work = carry["states"], {}
+    states, work = carry_d["states"], {}
     for si, name in enumerate(_STACKS):
         s = prepped["stacks"][name]
         H, n_out = s["H"], s["out"]
@@ -597,7 +799,6 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
             ints += [rec[k], lens[k], int(plan["resident"][si][k]),
                      plan["res_off"][si][k], plan["cap"][si][k]]
 
-    fo = _frame_operands(cfg, frames)
     for key, width in (("in2", 72), ("raw72", 72), ("j2n", 99), ("j2r", 99),
                        ("rcr", 9)):
         ptrs.append(ptr(fo[key], shape=(T, width)))
@@ -606,31 +807,29 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
              ptr(fo["first_tran"], shape=(T, 3)),
              ptr(fo["grav"], shape=(T, 3))]
 
-    last_pfoot = carry["last_pfoot"].to(f32).clone()
-    has = torch.stack([carry["has_pfoot"], carry["has_tran"]]).to(
+    last_pfoot = carry_d["last_pfoot"].to(f32).clone()
+    has = torch.stack([carry_d["has_pfoot"], carry_d["has_tran"]]).to(
         torch.uint8)
-    last_tran = carry["last_tran"].to(f32).clone()
-    floor_buf = carry["floor_buf"].to(f32).clone()
-    flags = torch.stack([carry["floor_cnt"].to(i32),
-                         carry["vision_count"].to(i32),
-                         carry["first_reach"].to(i32),
+    last_tran = carry_d["last_tran"].to(f32).clone()
+    floor_buf = carry_d["floor_buf"].to(f32).clone()
+    flags = torch.stack([carry_d["floor_cnt"].to(i32),
+                         carry_d["vision_count"].to(i32),
+                         carry_d["first_reach"].to(i32),
                          torch.zeros((), dtype=i32, device=dev)])
-    j_temp = carry["j_temp"].to(f32).clone()
+    j_temp = carry_d["j_temp"].to(f32).clone()
     ptrs += [ptr(last_pfoot, shape=(2, 3)), ptr(has, torch.uint8, (2,)),
              ptr(last_tran, shape=(3,)), ptr(floor_buf, shape=(11, 3)),
              ptr(flags, i32, (4,)), ptr(j_temp, shape=(33, 3)),
-             ptr(carry["pc_first"], shape=(3,)),
-             ptr(carry["out4_first"], shape=(prepped["stacks"]["rnn4"]["out"],
-                                              ))]
+             ptr(carry_d["pc_first"], shape=(3,)),
+             ptr(carry_d["out4_first"],
+                 shape=(prepped["stacks"]["rnn4"]["out"],))]
 
-    blendshape = bool(consts["blendshape"])
-    ptrs += [ptr(consts["parent"], i32, (24,)),
-             ptr(consts["bone"], shape=(24, 3)),
-             ptr(consts["j0"], shape=(24, 3)),
-             ptr(consts["wsub"], shape=(33, 24)),
-             ptr(consts["v0sub"], shape=(33, 3)),
-             ptr(consts["pd_rows"] if blendshape else None,
-                 shape=(99, PD_ROW))]
+    ptrs += [ptr(cd["parent"], i32, (24,)),
+             ptr(cd["bone"], shape=(24, 3)),
+             ptr(cd["j0"], shape=(24, 3)),
+             ptr(cd["wsub"], shape=(33, 24)),
+             ptr(cd["v0sub"], shape=(33, 3)),
+             ptr(cd["pd_rows"], shape=(99, PD_ROW))]
 
     use_imu = bool(cfg.use_imu_updater)
     init_n = [0, 0, 0]
@@ -642,7 +841,7 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
             init_n[i] = int(w.shape[0])
             ptrs += [ptr(w, shape=(init_n[i], m)), ptr(b, shape=(init_n[i],))]
             m = init_n[i]
-        if init_n[2] != 4 * prepped["H"]["rnn2"]:
+        if init_n[2] != 4 * prepped["stacks"]["rnn2"]["H"]:
             raise ValueError("rnn2's init_net must give (h, c) of both "
                              "layers")
     else:
@@ -664,9 +863,6 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
     ints += [layout[k] for k in ("bars", "state", "xin", "act", "actq",
                                  "parts", "red", "own", "tail", "tconst",
                                  "res", "ring", "ring_bytes", "total")]
-    conf_lo, conf_hi = cfg.conf_range
-    flts = [conf_lo, conf_hi, cfg.contact_threshold, cfg.distance_threshold,
-            cfg.tran_filter_num, cfg.height_threshold]
 
     p_arr = np.asarray(ptrs, dtype=np.int64)
     i_arr = np.asarray(ints, dtype=np.int32)
@@ -681,29 +877,76 @@ def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
     LAUNCHES += 1
 
     slot = T % 2
+    outs = [pose, tran, contact]
+    for name in _STACKS:
+        outs += [work[name][0][:, slot].contiguous(), work[name][1]]
+    written = {"last_pfoot": last_pfoot, "has_pfoot": has[0],
+               "last_tran": last_tran, "has_tran": has[1],
+               "floor_buf": floor_buf, "floor_cnt": flags[0],
+               "vision_count": flags[1], "first_reach": flags[2],
+               "j_temp": j_temp}
+    # each its own tensor in the carry's types: an operator's outputs may
+    # not alias its inputs or one another
+    outs += [written[k].to(carry_d[k].dtype, copy=True) for k in _CARRY_OUT]
+    return tuple(outs)
+
+
+def _serve_scan_fake(weights, consts, frame_ops, carry, meta, flts,
+                     timestamps):
+    T = frame_ops[_FRAME_KEYS.index("c")].shape[0]
+    f = frame_ops[0]
+    outs = [f.new_empty((T, 24, 3, 3)), f.new_empty((T, 3)),
+            f.new_empty((T, 2))]
+    outs += [t.new_empty(t.shape, dtype=torch.float32)
+             for t in carry[:2 * len(_STACKS)]]
+    outs += [t.new_empty(t.shape) for t in
+             carry[2 * len(_STACKS):2 * len(_STACKS) + len(_CARRY_OUT)]]
+    return tuple(outs)
+
+
+_SCHEMA = ("(Tensor[] weights, Tensor[] consts, Tensor[] frame_ops, "
+           "Tensor[] carry, int[] meta, float[] flts, "
+           "Tensor(a!)? timestamps) -> ("
+           + ", ".join(["Tensor"] * _N_OUT) + ")")
+serve_scan_op = torch.library.custom_op(
+    "robustcap::serve_scan", _serve_scan_cpu, mutates_args=("timestamps",),
+    device_types="cpu", schema=_SCHEMA)
+serve_scan_op.register_kernel("cuda")(_serve_scan_cuda)
+serve_scan_op.register_fake(_serve_scan_fake)
+
+
+def _rebuild(carry, outs):
+    r"""``(pose, tran, contact, new_carry)`` from the operator's outputs:
+    the carry's written entries replaced, the rest kept."""
+    pose, tran, contact = outs[:3]
+    n = 2 * len(_STACKS)
     new_carry = dict(carry)
-    new_carry.update({
-        "states": {n: (work[n][0][:, slot].contiguous(), work[n][1])
-                   for n in _STACKS},
-        "last_pfoot": last_pfoot, "has_pfoot": has[0].bool(),
-        "last_tran": last_tran, "has_tran": has[1].bool(),
-        "floor_buf": floor_buf, "floor_cnt": flags[0],
-        "vision_count": flags[1], "first_reach": flags[2].bool(),
-        "j_temp": j_temp,
-    })
+    new_carry["states"] = {name: (outs[3 + 2 * i], outs[4 + 2 * i])
+                           for i, name in enumerate(_STACKS)}
+    new_carry.update(zip(_CARRY_OUT, outs[3 + n:]))
     return pose, tran, contact, new_carry
 
 
+def _launch(prepped, consts, cfg, frames, carry, timestamps=None):
+    r"""The kernel launch of :func:`serve_scan` called directly, on the
+    tensors' own device, without the dispatcher: the g++ stand-in tests run
+    the kernel's source on CPU tensors through it."""
+    return _rebuild(carry, _serve_scan_cuda(
+        *_op_args(prepped, consts, cfg, frames, carry), timestamps))
+
+
 def serve_scan(prepped, consts, cfg, frames, carry, timestamps=None):
-    r"""Run a chunk through the serving step: one kernel launch on CUDA
-    tensors, the plain version on CPU tensors.
+    r"""Run a chunk through the serving step, as one call of the operator
+    ``torch.ops.robustcap.serve_scan``: one kernel launch on CUDA tensors,
+    the plain version on CPU tensors.
 
     ``prepped`` from :func:`prepare_serve_params`; ``consts`` the tail
     constants (``ops.geometry_tail.tail_constants``); ``frames`` as from
     ``models.sig_mp._sequence_frames`` (the kernel reads the confidence
-    ``c`` computed there and compares it in float32); ``carry`` the steady
-    carry after ``prescan_first_frame``. Returns ``(pose [T,24,3,3],
-    tran [T,3], contact [T,2], new_carry)``.
+    ``c`` computed there and compares it in float32; the first-frame flags
+    may be host booleans or tensors); ``carry`` the steady carry after
+    ``prescan_first_frame``. Returns ``(pose [T,24,3,3], tran [T,3],
+    contact [T,2], new_carry)``.
 
     ``timestamps``, on the card only: an int64 ``[T, TS_SLOTS]`` tensor of
     zeros that the kernel fills with block 0's ``%globaltimer`` (ns) at
@@ -716,8 +959,8 @@ def serve_scan(prepped, consts, cfg, frames, carry, timestamps=None):
     if bool(cfg.int8_compute) != (prepped["mode"] == "int8"):
         raise ValueError("cfg.int8_compute requires int8_gates prepped "
                          "params (and vice versa)")
-    if dev.type == "cpu":
-        if timestamps is not None:
-            raise ValueError("timestamps come from the kernel on the card")
-        return serve_scan_plain(prepped, consts, cfg, frames, carry)
-    return _launch(prepped, consts, cfg, frames, carry, timestamps)
+    if dev.type == "cpu" and timestamps is not None:
+        raise ValueError("timestamps come from the kernel on the card")
+    outs = torch.ops.robustcap.serve_scan(
+        *_op_args(prepped, consts, cfg, frames, carry), timestamps)
+    return _rebuild(carry, outs)

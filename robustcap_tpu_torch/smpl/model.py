@@ -18,8 +18,8 @@ from ..config import SMPL_PARENT
 from ..device import resolve_device
 from ..math.spatial import KinematicTree, get_tree
 
-__all__ = ["SmplData", "ParametricModel", "load_smpl_data",
-           "synthetic_smpl_data"]
+__all__ = ["SmplData", "ParametricModel", "default_body_model",
+           "load_smpl_data", "synthetic_smpl_data"]
 
 SMPL_NUM_JOINTS = 24
 SMPL_NUM_VERTS = 6890
@@ -242,3 +242,18 @@ class ParametricModel:
         t_v = torch.einsum("vj,bjc->bvc", weights, t_j)
         verts = (R_v @ v0[..., None])[..., 0] + t_v
         return R_glb, add_tran(p_glb), add_tran(verts)
+
+
+# the process-wide body model, one per device
+_DEFAULT_MODELS = {}
+
+
+def default_body_model(device="cuda") -> ParametricModel:
+    r"""The process-wide body model on ``device``: the official asset at
+    ``config.paths.smpl_file`` if present, else the procedural fallback;
+    built once per device."""
+    from ..config import paths
+    dev = resolve_device(device)
+    if dev not in _DEFAULT_MODELS:
+        _DEFAULT_MODELS[dev] = ParametricModel(paths.smpl_file, device=dev)
+    return _DEFAULT_MODELS[dev]

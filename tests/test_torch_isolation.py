@@ -27,7 +27,8 @@ def _submodules():
 
 # Drives what the port added for the bf16/int8 weights in the same process:
 # quantization, the int8 step, and the serve path in its three modes; then
-# the batched step and the offline evaluation on a fixture corpus.
+# the batched step and the offline evaluation on a fixture corpus; then a
+# serving bundle exported and loaded, the multiplexer and the live server.
 _DRIVE = """
 import torch
 from robustcap_tpu_torch.config import SigMPConfig
@@ -74,6 +75,28 @@ with warnings.catch_warnings():
     warnings.simplefilter("ignore")
     out = evaluate_sequences(seqs, p, model, pad_to_multiple=4, device="cpu")
 assert out["mpjpe"] == out["mpjpe"], out
+import tempfile
+import numpy as np
+from robustcap_tpu_torch.serving import ServingBundle, export_serving_bundle
+from robustcap_tpu_torch.streaming import LiveServer, StreamingMultiplexer
+with tempfile.TemporaryDirectory() as d:
+    export_serving_bundle(p, model, SigMPConfig(pallas_serve=True), d,
+                          chunk_len=2, device="cpu")
+    bundle = ServingBundle.load(d, device="cpu")
+x = frames
+pose, _ = bundle.forward_online(x["j2dc"][0], x["accc"][0], x["oric"][0],
+                                first_frame=True)
+pose, _ = bundle.forward_chunk(x["j2dc"], x["accc"], x["oric"])
+assert tuple(pose.shape) == (2, 24, 3, 3)
+mux = StreamingMultiplexer(q, model, cfg8, capacity=2, device="cpu")
+mux.open_slot()
+pose, _ = mux.step(x["j2dc"], x["accc"], x["oric"],
+                   first_frame=np.array([True, False]))
+assert np.isfinite(pose).all()
+pose_aa, _ = LiveServer(p, model, device="cpu").process(
+    x["j2dc"][0].numpy(), x["oric"][0].numpy(), x["accc"][0].numpy(),
+    np.eye(3, dtype=np.float32))
+assert pose_aa.shape == (24, 3)
 """
 
 
@@ -162,6 +185,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
         run_sequences(params, model, SigMPConfig(), [seq])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_sequences([seq], params, model)
+    from robustcap_tpu_torch.serving import (ServingBundle,
+                                             export_serving_bundle)
+    from robustcap_tpu_torch.smpl import default_body_model
+    from robustcap_tpu_torch.streaming import (LiveServer,
+                                               StreamingMultiplexer,
+                                               measure_streaming_latency)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_body_model()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_serving_bundle(params, model, SigMPConfig(), "unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingBundle.load("unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingMultiplexer(params, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LiveServer(params, model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_streaming_latency(params, model)
 
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])

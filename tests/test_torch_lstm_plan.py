@@ -89,7 +89,7 @@ def test_plan_refuses_what_the_kernel_cannot_take(full):
 @pytest.mark.parametrize("name", ["rnn2", "rnn3"])
 def test_pack_then_unpack_returns_the_stack(full, name):
     s = full[name].stack
-    back = S.unpack_stack(s)
+    back = S.unpack_stack(s, "f32")
     for k in ("w1", "b1", "w2", "b2"):
         assert torch.equal(back[k], s[k]), k
     for k in ("w_ih", "w_hh", "bias"):

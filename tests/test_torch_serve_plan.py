@@ -179,7 +179,7 @@ def test_unpack_gives_back_the_weights(specs, mode):
                                 device=CPU)
     prepped = prepare(params, mode)
     for name, st in prepped["stacks"].items():
-        back = S.unpack_stack(st)
+        back = S.unpack_stack(st, prepped["mode"])
         for key in ("w1", "b1", "w2", "b2"):
             assert_same(back[key], st[key])
         keys = ("w_ih", "w_hh", "bias") + (

@@ -63,8 +63,10 @@ def world():
 
 @pytest.fixture
 def on_standin(monkeypatch, standin_lib):
-    r"""``serve_scan._launch`` goes to the host build."""
+    r"""``serve_scan._launch`` goes to the host build, with no plan kept
+    from another test (a test may plan for a smaller budget)."""
     standin.use(monkeypatch, "serve_scan", standin_lib)
+    monkeypatch.setattr(S, "_PLANS", {})
 
 
 def stream(seed, conf):
@@ -138,7 +140,7 @@ def test_standin_kernel_matches_plain(world, on_standin, monkeypatch, mode,
         assert torch.equal(torch.cat([a, b]), whole)
     assert state_gap(rest[3], got[3]) == 0
 
-    plan = prepped[("plan", None)][0]
+    plan = S._device_plan(prepped, CPU)[0]
     lay = plan["layout"]
     if chunk == "mixed":
         assert lay["total"] == 232448
@@ -166,7 +168,7 @@ def test_standin_timestamps(world, on_standin, monkeypatch, mode, live):
                                            True)
     ts = torch.zeros((len(CONF), S.TS_SLOTS), dtype=torch.int64)
     S._launch(prepped, consts, cfg, frames, carry, ts)
-    plan = prepped[("plan", None)][0]
+    plan = S._device_plan(prepped, CPU)[0]
     assert not any(any(r) for r in plan["resident"])
 
     def layer0_bytes(name):
