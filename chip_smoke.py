@@ -74,7 +74,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
    harness over 600 frames with ``live_mode()`` and the tail kernel (its
    launches counted) and with the kernels off; the live server over
    loopback with the f32 bundle, 120 detector packets of a fixture
-   sequence, one frame back for each.
+   sequence, one frame back for each;
+9. SMPLify (``smplify/``, ``ops/lbfgs.py``, plain torch, no kernel): one
+   fixture sequence through ``forward_offline`` with the serve kernel (its
+   launch counted into the kernel line), then ``smplify_runner`` at lr 1.0
+   and 0.001 on the card and on the CPU from that output (float32: the
+   card's move and its gap from the CPU printed, with evaluations and host
+   reads), and the same fit in float64 on both, held within a tenth of the
+   card's move (the unrefined start outside); the reprojection loss must
+   not rise; ``evaluate_sequences`` with and without SMPLify on phase 7's
+   corpus; ``make_smplify_fit`` timed at the JAX bench's shape (16 lanes x
+   128 frames): frames/s, evaluations and host reads a fit, the
+   synchronizing calls under ``torch.cuda.set_sync_debug_mode``, kernels
+   and device time from ``torch.profiler``, beside ``nvidia-smi``'s name
+   and power limit.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -1891,6 +1904,248 @@ def check_serving(params, model, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: SMPLify on the card
+# ---------------------------------------------------------------------------
+
+# a float64 refinement on the card against the same on the CPU: within a
+# tenth of the card's own move (in float32 a start moved by one ulp can
+# move the result by more than that, so float32 runs are printed, not held)
+SMPLIFY_SHARE = 0.1
+# the JAX bench's SMPLify shape (bench.py, run_smplify) and this run's seed
+SMPLIFY_LANES, SMPLIFY_T, SMPLIFY_SEED, SMPLIFY_REPS = 16, 128, 7, 5
+
+
+def _refine_shares(got, want, start):
+    r"""(median per-joint angle between ``got`` and ``want`` over the median
+    angle ``want`` moved from ``start``, and the same of the per-frame
+    translations); each a list of ``(pose [T, 24, 3, 3], tran [T, 3])``."""
+    import torch
+    from robustcap_tpu_torch.math import angle_between
+
+    def ang(a, b):
+        return angle_between(
+            torch.as_tensor(np.array(a, np.float64)).reshape(-1, 3, 3),
+            torch.as_tensor(np.array(b, np.float64)).reshape(-1, 3, 3)
+        ).numpy()
+
+    def dist(a, b):
+        return np.linalg.norm(np.asarray(a, np.float64)
+                              - np.asarray(b, np.float64), axis=-1)
+
+    gap = np.concatenate([ang(g[0], w[0]) for g, w in zip(got, want)])
+    move = np.concatenate([ang(s[0], w[0]) for s, w in zip(start, want)])
+    tgap = np.concatenate([dist(g[1], w[1]) for g, w in zip(got, want)])
+    tmove = np.concatenate([dist(s[1], w[1]) for s, w in zip(start, want)])
+    return (float(np.median(gap) / np.median(move)),
+            float(np.median(tgap) / np.median(tmove)))
+
+
+def _on_manifold(pose):
+    r = np.asarray(pose, np.float64).reshape(-1, 3, 3)
+    return float(np.abs(np.einsum("nab,nac->nbc", r, r) - np.eye(3)).max())
+
+
+def _bench_smplify_inputs(dev, seed):
+    r"""The inputs of the JAX bench's SMPLify timing: 16 lanes of 128
+    frames, random poses (0.2 rad), translations near 3 m, keypoints
+    around pixel 300 with confidence 0.9, identity IMUs, one camera."""
+    import torch
+    from robustcap_tpu_torch.math import axis_angle_to_rotation_matrix
+    rng = np.random.RandomState(seed)
+    B, T = SMPLIFY_LANES, SMPLIFY_T
+    aa = (rng.randn(B * T * 24, 3) * 0.2).astype(np.float32)
+    pose0 = axis_angle_to_rotation_matrix(torch.from_numpy(aa)).reshape(
+        B, T, 24, 3, 3)
+    tran0 = rng.randn(B, T, 3).astype(np.float32) * 0.1 + [0, 0, 3]
+    kp = (rng.randn(B, T, 33, 3) * 50 + 300).astype(np.float32)
+    kp[..., 2] = 0.9
+    ori = np.broadcast_to(np.eye(3, dtype=np.float32), (B, T, 6, 3, 3))
+    cam = np.broadcast_to(np.asarray([[600.0, 0, 320], [0, 600, 240],
+                                      [0, 0, 1]], np.float32), (B, 3, 3))
+    return [torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
+            for x in (pose0, tran0, kp, ori, cam, np.ones((B, T)))]
+
+
+def _count_syncs(fn):
+    r"""The synchronizing CUDA calls during ``fn()``, as
+    ``torch.cuda.set_sync_debug_mode`` reports them, counted by the source
+    line that made them: ``{"file.py:line": n}``."""
+    import collections
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message))
+
+
+def check_smplify(params, model, dev):
+    r"""Phase 9: (a) one fixture sequence through ``forward_offline`` with
+    the serve kernel, then ``smplify_runner`` on the card and on the CPU
+    from that output, and the fit in float64 on both, held; (b)
+    ``evaluate_sequences`` with and without SMPLify on phase 7's corpus;
+    (c) the fit timed at the JAX bench's shape. Returns the serve launches
+    of the phase."""
+    import warnings
+
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.eval import (build_aist_sequences,
+                                          evaluate_sequences)
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import lbfgs, serve_scan
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.smpl import ParametricModel
+    from robustcap_tpu_torch.smplify import (MaxMixturePrior,
+                                             make_smplify_fit, smplify_runner)
+
+    t_start = time.perf_counter()
+    cpu = torch.device("cpu")
+    ds = build_fixture_dataset(model, n_seq=EVAL_SEQ, T=EVAL_T, n_cam=EVAL_CAM,
+                               seed=EVAL_SEED)
+    seqs = build_aist_sequences(ds, num_cameras=EVAL_CAM)
+    seq = seqs[0]
+
+    # (a) the network's output for one sequence, refined on both devices
+    serve_scan.LAUNCHES = 0
+    pose, tran = sig_mp.forward_offline(
+        params, model, SigMPConfig(pallas_serve=True), seq.j2dc, seq.accc,
+        seq.oric, first_tran=seq.first_tran, gravityc=seq.gravityc,
+        device=dev)
+    launches = serve_scan.LAUNCHES
+    _require(launches == 1, f"forward_offline: {launches} serve launches, "
+             "expected 1")
+    start = (pose.cpu().numpy(), tran.cpu().numpy())
+    models = {"card": (model, MaxMixturePrior(device=dev), dev),
+              "cpu": (ParametricModel(data=model.data, device=cpu),
+                      MaxMixturePrior(device=cpu), cpu)}
+    models64 = {k: (ParametricModel(data=model.data, dtype=torch.float64,
+                                    device=d),
+                    MaxMixturePrior(device=d, dtype=torch.float64), d)
+                for k, (_, _, d) in models.items()}
+    T = seq.length
+    lanes = [np.asarray(x, np.float64)[None] for x in
+             (start[0], start[1], seq.j2dc_px, seq.oric, seq.cam_K,
+              np.ones(T))]
+    for lr in (1.0, 0.001):
+        runs, counts = {}, {}
+        for where, (m, prior, d) in models.items():
+            lbfgs.HOST_READS = lbfgs.EVALUATIONS = 0
+            runs[where] = smplify_runner(
+                start[0], start[1], seq.j2dc_px, seq.oric, batch_size=T,
+                cam_k=seq.cam_K, lr=lr, model=m, prior=prior, device=d)
+            counts[where] = (lbfgs.EVALUATIONS, lbfgs.HOST_READS)
+            p, t, update = runs[where]
+            _require(np.isfinite(p).all() and np.isfinite(t).all()
+                     and update is not None,
+                     f"smplify_runner on the {where}: non-finite or gated")
+            _require(_on_manifold(p) < 1e-4, f"smplify_runner on the "
+                     f"{where}: rotations off the manifold")
+        f32 = _refine_shares([runs["cpu"][:2]], [runs["card"][:2]], [start])
+        _, _, before, after = make_smplify_fit(
+            model, models["card"][1], lr=lr)(
+            *(torch.as_tensor(x, dtype=torch.float32, device=dev)
+              for x in lanes))
+        before, after = float(before.mean()), float(after.mean())
+        _require(after <= before, f"lr {lr}: loss after {after} above loss "
+                 f"before {before} on the card")
+        fits = {}
+        for where, (m, prior, d) in models64.items():
+            pose_r, tran_r, b64, a64 = make_smplify_fit(m, prior, lr=lr)(
+                *(torch.as_tensor(x, device=d) for x in lanes))
+            _require(float(a64.mean()) <= float(b64.mean()),
+                     f"lr {lr}, float64 on the {where}: loss after above "
+                     "loss before")
+            fits[where] = (pose_r[0].cpu().numpy(), tran_r[0].cpu().numpy())
+        start64 = (lanes[0][0], lanes[1][0])
+        f64 = _refine_shares([fits["cpu"]], [fits["card"]], [start64])
+        ctl = _refine_shares([start64], [fits["card"]], [start64])
+        print(f"[smplify] (a) lr {lr}: smplify_runner on the card, "
+              f"{counts['card'][0]} evaluations, {counts['card'][1]} host "
+              f"reads (CPU: {counts['cpu'][0]}, {counts['cpu'][1]}); "
+              f"reprojection loss {before:.1f} -> {after:.1f}; float32 card "
+              f"vs CPU (not held, set by rounding): pose {f32[0]:.4f}, "
+              f"translation {f32[1]:.4f} of the card's move; float64 card "
+              f"vs CPU: {f64[0]:.3g}, {f64[1]:.3g} (bound {SMPLIFY_SHARE}; "
+              f"unrefined start {ctl[0]:.3f}, {ctl[1]:.3f})", flush=True)
+        _require(max(f64) <= SMPLIFY_SHARE < min(ctl),
+                 f"lr {lr}: float64 refinement on the card {f64} of its move "
+                 f"from the CPU's (bound {SMPLIFY_SHARE}, control {ctl})")
+
+    # (b) the evaluation, refined and not
+    metrics = {}
+    with warnings.catch_warnings():
+        # the procedural body's regressor stands in for the H36M asset
+        warnings.simplefilter("ignore")
+        for smplify in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = evaluate_sequences(seqs, params, model,
+                                     pad_to_multiple=EVAL_T,
+                                     run_smplify=smplify, device=dev)
+            secs = time.perf_counter() - t0
+            metrics[smplify] = {k: out[k] * 1e3 for k in
+                                ("mpjpe", "pve", "pampjpe", "tran_error")}
+            _require(all(np.isfinite(v) for v in metrics[smplify].values()),
+                     f"evaluate_sequences(run_smplify={smplify}): "
+                     f"{metrics[smplify]}")
+            print(f"[smplify] (b) evaluate_sequences run_smplify={smplify} "
+                  f"on {len(seqs)} fixture sequences of {EVAL_T} frames: "
+                  + ", ".join(f"{k} {v:.3f} mm"
+                              for k, v in metrics[smplify].items())
+                  + f"; {secs:.2f} s (host clock)", flush=True)
+    _require(metrics[True] != metrics[False],
+             "evaluate_sequences: SMPLify changed no metric")
+
+    # (c) the fit at the JAX bench's shape
+    fit = make_smplify_fit(model, models["card"][1], lr=0.001)
+    inputs = _bench_smplify_inputs(dev, SMPLIFY_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fit(*inputs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    lbfgs.HOST_READS = lbfgs.EVALUATIONS = 0
+    t0 = time.perf_counter()
+    for _ in range(SMPLIFY_REPS):
+        out = fit(*inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / SMPLIFY_REPS * 1e3
+    evals = lbfgs.EVALUATIONS / SMPLIFY_REPS
+    reads = lbfgs.HOST_READS / SMPLIFY_REPS
+    _require(all(bool(torch.isfinite(x).all()) for x in out),
+             "bench-shape fit: non-finite output")
+    lbfgs.HOST_READS = 0
+    syncs = _count_syncs(lambda: fit(*inputs))
+    flag_reads = lbfgs.HOST_READS
+    prof = _device_busy(lambda: fit(*inputs), 2)
+    frames = SMPLIFY_LANES * SMPLIFY_T
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"[smplify] (c) make_smplify_fit, {SMPLIFY_LANES} lanes x "
+          f"{SMPLIFY_T} frames (lr 0.001, seed {SMPLIFY_SEED}): {ms:.1f} ms "
+          f"a fit (first {first_s * 1e3:.1f} ms), {frames / ms * 1e3:.1f} "
+          f"frames/s (host clock, synchronized); {evals:.0f} batched "
+          f"evaluations and {reads:.0f} host reads a fit; "
+          f"{sum(syncs.values())} synchronizing calls in one fit under "
+          f"sync debug ({flag_reads} of them flag reads), by line: "
+          f"{dict(syncs.most_common(8))}; {_busy_text(prof, ms)}; {smi}",
+          flush=True)
+    print(f"[smplify] phase 9 in {time.perf_counter() - t_start:.1f} s; "
+          f"{launches} serve launch", flush=True)
+    return {"serve_scan": launches}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1937,6 +2192,8 @@ def main():
     for key, n in check_eval(params, model, dev).items():
         launches[key] += n
     for key, n in check_serving(params, model, dev).items():
+        launches[key] += n
+    for key, n in check_smplify(params, model, dev).items():
         launches[key] += n
 
     kernels = [

@@ -1,5 +1,8 @@
-r"""Command-line interface of the port: the serving workflows.
+r"""Command-line interface of the port: the offline evaluation and the
+serving workflows.
 
+    python -m robustcap_tpu_torch eval [--dataset aist|tc|pw3d|pw3d_occ]
+        [--weights W] [--no-smplify] [--no-cache] [--device cuda]
     python -m robustcap_tpu_torch export --out DIR [--weights W] [--live]
         [--int8-compute] [--chunk-len K --pallas-serve] [--device cuda]
     python -m robustcap_tpu_torch latency [--weights W] [--frames N]
@@ -11,7 +14,9 @@ The flags are the JAX package's (``python -m robustcap_tpu``), with
 ``--device`` in place of ``--platforms``. ``--weights`` reads the
 reference's ``.pt`` checkpoint, or a pickle of the JAX package's parameter
 tree (``train.save_pytree``) whose arrays are float32 or int8; without it
-the weights are random (seed 0). The other subcommands are not ported yet.
+the weights are random (seed 0). ``eval`` reads the datasets and caches
+under ``config.paths`` and prints the mean MPJPE, PVE, PA-MPJPE and root
+position error in metres. The other subcommands are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +60,24 @@ def _load_params(args):
           file=sys.stderr)
     return sig_mp.init_params(torch.Generator().manual_seed(0),
                               device=args.device)
+
+
+def cmd_eval(args):
+    r"""Evaluate on one dataset (``eval/evaluate.py``), SMPLify included
+    unless ``--no-smplify``."""
+    from robustcap_tpu_torch.eval import (evaluate_aist_ours,
+                                          evaluate_pw3d_ours,
+                                          evaluate_tc_ours)
+    kw = dict(run_smplify=not args.no_smplify, params=_load_params(args),
+              use_cache=not args.no_cache, device=args.device)
+    if args.dataset == "aist":
+        out = evaluate_aist_ours(**kw)
+    elif args.dataset in ("tc", "totalcapture"):
+        out = evaluate_tc_ours(**kw)
+    else:
+        out = evaluate_pw3d_ours(occ=args.dataset == "pw3d_occ", **kw)
+    print(json.dumps({k: out[k] for k in
+                      ("mpjpe", "pve", "pampjpe", "tran_error")}))
 
 
 def _int8_mode(params, cfg):
@@ -115,6 +138,16 @@ def main(argv=None):
     def device_flag(sp):
         sp.add_argument("--device", default="cuda",
                         help="torch device (default: the CUDA card)")
+
+    pe = sub.add_parser("eval", help="offline dataset evaluation")
+    pe.add_argument("--dataset", default="aist",
+                    choices=["aist", "tc", "totalcapture", "pw3d",
+                             "pw3d_occ"])
+    pe.add_argument("--weights")
+    pe.add_argument("--no-smplify", action="store_true")
+    pe.add_argument("--no-cache", action="store_true")
+    device_flag(pe)
+    pe.set_defaults(fn=cmd_eval)
 
     pl = sub.add_parser("latency", help="streaming latency harness")
     pl.add_argument("--weights")

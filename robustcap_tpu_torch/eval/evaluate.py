@@ -2,7 +2,8 @@ r"""Offline dataset evaluation with the reference's ``evaluate.py`` API
 (port of ``robustcap_tpu/eval/evaluate.py``).
 
 ``evaluate_{aist,tc,pw3d}_ours`` and ``cal_mpjpe`` keep the reference's
-names and results. Inference runs bucketed and batched (``runner.py``);
+names and results. Inference runs bucketed and batched (``runner.py``),
+then SMPLify refines the sequences as batched lanes (``run_smplify``);
 MPJPE and PVE come from the H36M-regressed 14 joints and the mesh of one
 whole sequence at once on the body model's device, PA-MPJPE from a float64
 Procrustes on the host. Results are cached to ``result.pt`` (AIST,
@@ -23,6 +24,7 @@ from ..config import SigMPConfig, paths
 from ..device import resolve_device
 from ..ops.procrustes import reconstruction_error_np
 from ..smpl.model import ParametricModel
+from ..smplify.runner import refine_sequences_batched
 from .datasets import (build_aist_sequences, build_pw3d_sequences,
                        build_tc_sequences, load_torch_file)
 from .evaluator import PositionErrorEvaluator
@@ -109,6 +111,16 @@ def _save_cache(path, cache_format, seqs, pose_p, tran_p):
                    path)
 
 
+def _maybe_smplify(results, seqs, run_smplify: bool, model, device):
+    r"""The reference's refinement of each sequence (lr 0.001, L-BFGS, one
+    step, the gate at 20000), with same-length sequences refined together
+    as the lanes of one optimization."""
+    if not run_smplify:
+        return results
+    return refine_sequences_batched(results, seqs, lr=0.001, opt_steps=1,
+                                    model=model, device=device)
+
+
 def evaluate_sequences(seqs, params=None, model=None, cfg=SigMPConfig(),
                        first_tran_mode="gt", run_smplify=False,
                        cache_path=None, pad_to_multiple=128, max_bucket=32,
@@ -122,13 +134,9 @@ def evaluate_sequences(seqs, params=None, model=None, cfg=SigMPConfig(),
     ``tran_error``, in metres); ``extended_metrics`` adds the
     :class:`~.evaluator.FullMotionEvaluator` battery as ``full_motion``
     ``[11, 2]``. A cache in either layout is read; a new one is written
-    in ``cache_format`` (``"result4"`` or ``"result2"``). Params and model
-    must already be on ``device``. SMPLify refinement is not ported yet:
-    ``run_smplify=True`` raises."""
-    if run_smplify:
-        raise NotImplementedError(
-            "run_smplify: the SMPLify refinement is not ported yet "
-            "(ROADMAP A10); pass run_smplify=False")
+    in ``cache_format`` (``"result4"`` or ``"result2"``), after the SMPLify
+    refinement where ``run_smplify`` asks for it. Params and model must
+    already be on ``device``."""
     dev = resolve_device(device)
     model = model or _default_model(dev)
     if cache_path is not None and os.path.exists(cache_path):
@@ -140,6 +148,7 @@ def evaluate_sequences(seqs, params=None, model=None, cfg=SigMPConfig(),
         results = run_sequences(params, model, cfg, seqs, first_tran_mode,
                                 max_bucket=max_bucket,
                                 pad_to_multiple=pad_to_multiple, device=dev)
+        results = _maybe_smplify(results, seqs, run_smplify, model, dev)
         pose_p = [r[0] for r in results]
         tran_p = [r[1] for r in results]
         if cache_path is not None:

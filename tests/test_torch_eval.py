@@ -13,7 +13,9 @@ on the host is held equal; what the body math computes in float32 within
 sides) within rtol 1e-9.
 """
 
+import json
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from robustcap_tpu.eval.quality import serve_end_metric_deltas as jquality
 from robustcap_tpu.ops import procrustes as jproc
 from robustcap_tpu.preprocess import fixtures as jfix
 from robustcap_tpu_torch import config as TC
+from robustcap_tpu_torch.__main__ import main
 from robustcap_tpu_torch.eval import contacts as tcontacts
 from robustcap_tpu_torch.eval import datasets as tdata
 from robustcap_tpu_torch.eval import evaluate as teval
@@ -40,6 +43,8 @@ from robustcap_tpu_torch.eval.quality import (END_METRIC_BOUND_MM,
                                               serve_end_metric_deltas)
 from robustcap_tpu_torch.ops import procrustes as tproc
 from robustcap_tpu_torch.preprocess import fixtures as tfix
+from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+from test_torch_smplify import one_torch_thread
 from test_torch_tail import make_models, make_params
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -407,7 +412,8 @@ def test_each_side_reads_the_others_cache(evaluated, world, tmp_path,
 def test_entry_points(world, tmp_path, monkeypatch):
     r"""``evaluate_{aist,tc,pw3d}_ours`` on fixtures with a cache under a
     repointed data root: the second call reads the cache, without params;
-    SMPLify refinement is not ported and says so."""
+    each entry also runs with its default, SMPLify refinement on, which
+    moves the poses."""
     _, tm, _, tp, ds = world
     monkeypatch.setattr(teval, "paths", TC.Paths(data_root=str(tmp_path)))
     out = teval.evaluate_aist_ours(run_smplify=False, params=tp, model=tm,
@@ -425,9 +431,51 @@ def test_entry_points(world, tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "dataset_work/3DPW/result2.pt")
     for o in (out, tc, pw):
         assert np.isfinite([o["mpjpe"], o["pve"], o["pampjpe"]]).all()
-    with pytest.raises(NotImplementedError, match="A10"):
-        teval.evaluate_aist_ours(params=tp, model=tm, dataset=ds,
-                                 use_cache=False, device="cpu")
+    with one_torch_thread():
+        refined = [
+            teval.evaluate_aist_ours(params=tp, model=tm, dataset=ds,
+                                     use_cache=False, device="cpu"),
+            teval.evaluate_tc_ours(params=tp, model=tm, dataset=ds,
+                                   use_cache=False, device="cpu"),
+            teval.evaluate_pw3d_ours(
+                params=tp, model=tm,
+                dataset=tfix.build_fixture_dataset_pw3d(tm, n_seq=1, T=16,
+                                                        seed=2),
+                use_cache=False, device="cpu")]
+    for plain, o in zip((out, tc, pw), refined):
+        assert np.isfinite([o["mpjpe"], o["pve"], o["pampjpe"]]).all()
+        assert any(np.abs(a - b).max() > 1e-4
+                   for a, b in zip(o["pose_p"], plain["pose_p"]))
+
+
+def test_cli_eval(world, tmp_path, capsys, monkeypatch):
+    r"""``python -m robustcap_tpu_torch eval`` in-process on the CPU, over
+    a fixture AIST++ corpus under a repointed data root: the metrics as
+    JSON, ``--no-smplify`` gives the unrefined ones, and without
+    ``--no-cache`` the result cache is written."""
+    jp = world[2]
+    monkeypatch.setattr(teval, "paths", TC.Paths(data_root=str(tmp_path)))
+    # the CLI scores on the default body: the 6890-vertex procedural one
+    os.makedirs(tmp_path / "dataset_work/AIST")
+    torch.save(tfix.build_fixture_dataset(
+        ParametricModel(data=synthetic_smpl_data(), device="cpu"), n_seq=1,
+        T=16, n_cam=2, seed=3), tmp_path / "dataset_work/AIST/test.pt")
+    pkl = str(tmp_path / "w.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(jax.tree.map(np.array, jp), f)
+    lines = {}
+    for flag in ("--no-smplify", None):
+        argv = ["eval", "--weights", pkl, "--no-cache", "--device", "cpu"]
+        with one_torch_thread():
+            main(argv + ([flag] if flag else []))
+        lines[flag] = json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])
+    for line in lines.values():
+        assert set(line) == {"mpjpe", "pve", "pampjpe", "tran_error"}
+        assert np.isfinite(list(line.values())).all()
+    assert lines[None] != lines["--no-smplify"]
+    main(["eval", "--weights", pkl, "--no-smplify", "--device", "cpu"])
+    assert os.path.exists(tmp_path / "dataset_work/AIST/result.pt")
 
 
 def test_evaluate_contacts_matches_jax(world):

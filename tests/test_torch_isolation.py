@@ -27,8 +27,9 @@ def _submodules():
 
 # Drives what the port added for the bf16/int8 weights in the same process:
 # quantization, the int8 step, and the serve path in its three modes; then
-# the batched step and the offline evaluation on a fixture corpus; then a
-# serving bundle exported and loaded, the multiplexer and the live server.
+# the batched step and the offline evaluation on a fixture corpus, and
+# SMPLify's refinement of it; then a serving bundle exported and loaded, the
+# multiplexer and the live server.
 _DRIVE = """
 import torch
 from robustcap_tpu_torch.config import SigMPConfig
@@ -75,6 +76,11 @@ with warnings.catch_warnings():
     warnings.simplefilter("ignore")
     out = evaluate_sequences(seqs, p, model, pad_to_multiple=4, device="cpu")
 assert out["mpjpe"] == out["mpjpe"], out
+from robustcap_tpu_torch.smplify import refine_sequences_batched
+refined = refine_sequences_batched(
+    [(s.pose_gt, s.tran_gt) for s in seqs], seqs, model=model,
+    pad_to_multiple=8, group_size=2, device="cpu")
+assert refined[0][0].shape == (6, 24, 3, 3)
 import tempfile
 import numpy as np
 from robustcap_tpu_torch.serving import ServingBundle, export_serving_bundle
@@ -133,6 +139,9 @@ def test_no_jax_import_in_sources():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 10
+    for name in ("smplify/__init__.py", "smplify/prior.py",
+                 "smplify/losses.py", "smplify/runner.py", "ops/lbfgs.py"):
+        assert os.path.join(PKG, name) in files, name
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -203,6 +212,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
         LiveServer(params, model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         measure_streaming_latency(params, model)
+    from robustcap_tpu_torch.smplify import (MaxMixturePrior,
+                                             TemporalSMPLify,
+                                             refine_sequences_batched,
+                                             smplify_runner)
+    pose = np.broadcast_to(np.eye(3), (2, 24, 3, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MaxMixturePrior("unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TemporalSMPLify(np.eye(3), np.zeros((2, 6, 3, 3)), model=model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        refine_sequences_batched([(pose, np.zeros((2, 3)))], [seq],
+                                 model=model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        smplify_runner(pose, np.zeros((2, 3)), z, np.zeros((2, 6, 3, 3)),
+                       2, np.eye(3), model=model)
 
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])
