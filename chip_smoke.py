@@ -87,7 +87,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
    128 frames): frames/s, evaluations and host reads a fit, the
    synchronizing calls under ``torch.cuda.set_sync_debug_mode``, kernels
    and device time from ``torch.profiler``, beside ``nvidia-smi``'s name
-   and power limit.
+   and power limit;
+10. training (``train/``, ``nn.rnn.rnn_forward_padded`` on ``nn.LSTM``,
+   i.e. cuDNN; no kernel of ours): (a) one train step per module of
+   ``RNN_SPECS`` at full width and the reference's training shape (B=256,
+   T=200, lengths drawn from 100-200), with the module's own loss
+   (``init_net`` for rnn2): with dropout 0 its loss and gradients through
+   cuDNN held against the per-frame plain path on the card, and at B=8,
+   T=64 against float64 on the CPU, within ``TRAIN_AGREE``; then the whole
+   step (forward, loss, backward, clip, Adam, the module's dropout) timed
+   with CUDA events (median of 10 after 3 warm-ups) in ms, sequences/s and
+   valid frames/s, with ``torch.profiler``'s kernels, device time (held
+   within ``TRAIN_BUSY_MARGIN`` of the step), idle share and top three
+   kernels, the synchronizing calls a step, the step's memory over what
+   was held before it and the whole peak; then timed again with the LSTM
+   weights kept in cuDNN's layout (an ``nn.LSTM``'s parameters), against
+   cuDNN's copy of the tree's tensors at each call; (b) ``train_rnn2`` ... ``train_rnn8`` for one epoch each on
+   a fixture corpus, ``train_rnn3`` resumed from its files for a second
+   epoch, ``merge_weights``, ``forward_offline`` of the merged weights
+   through the serve kernel (its launch counted into the kernel line;
+   finite outputs), and ``python -m robustcap_tpu_torch train --rnn 3``
+   in-process on ``.pt`` files written from the corpus.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -97,6 +117,7 @@ printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -1511,10 +1532,12 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def _device_busy(fn, n):
-    r"""``(kernels, device ms)`` per call of ``fn`` over ``n`` calls, from
-    ``torch.profiler``'s device-side events (each kernel and copy once),
-    or ``None`` where the profiler records no device time."""
+def _profile_top(fn, n, k=5):
+    r"""``(kernels and copies, device ms summed, device ms busy, top k by
+    device time as (name, ms, calls))`` per call of ``fn`` over ``n``
+    calls (``torch.profiler``); "busy" is the union of the kernels' time
+    ranges, which overlap where work runs on several streams. ``None``
+    where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1523,15 +1546,40 @@ def _device_busy(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and not getattr(e, "is_user_annotation", False)]
-    busy = sum(getattr(e, "self_device_time_total",
+
+    def on_device(e):
+        return (str(e.device_type).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False))
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-               for e in events) / 1e3 / n
-    if busy <= 0:
+
+    events = [e for e in prof.key_averages() if on_device(e)]
+    summed = sum(dev_us(e) for e in events) / 1e3 / n
+    if summed <= 0:
         return None
-    return sum(e.count for e in events) / n, busy
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if on_device(e)):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(events, key=dev_us, reverse=True)[:k]
+    return (sum(e.count for e in events) / n, summed, busy / 1e3 / n,
+            [(e.key[:56], round(dev_us(e) / 1e3 / n, 3), e.count // n)
+             for e in top])
+
+
+def _device_busy(fn, n):
+    r"""``(kernels, device ms)`` per call of ``fn`` over ``n`` calls, from
+    ``torch.profiler``'s device-side events (each kernel and copy once,
+    summed), or ``None`` where the profiler records no device time."""
+    prof = _profile_top(fn, n)
+    return None if prof is None else prof[:2]
 
 
 def _busy_text(prof, host_ms):
@@ -2146,6 +2194,354 @@ def check_smplify(params, model, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 256, 200     # the reference's batch and chunk length
+TRAIN_LENGTHS = (100, 200)      # each row's length, drawn from this range
+TRAIN_SMALL = (8, 64)           # B, T of the float64 check on the CPU
+TRAIN_SEED = 10
+# cuDNN against the per-frame plain path (float32, dropout 0), and float32
+# on the card against float64 on the CPU: the loss relative to itself, each
+# gradient against its largest entry (float32 sums in another order over
+# 200 recurrent steps; a wrong mask or gate is off by O(1))
+TRAIN_AGREE = 1e-4
+TRAIN_REPS, TRAIN_WARMUP = 10, 3
+# the device's busy time a step (two profiled steps) may pass the step's
+# median (ten timed steps) by this share before the count is held wrong
+TRAIN_BUSY_MARGIN = 0.05
+E2E_T, E2E_SEED = 64, 12        # the fixture corpus of the end-to-end run
+
+
+def _train_inputs(name, B, T, lengths_range, seed):
+    r"""Host inputs of one module's train step: ``(xs [T, B, in], labels
+    [T, B, out], lengths [B], init [B, out] or None)``, zero past each
+    row's length like ``padded_batches``."""
+    from robustcap_tpu_torch.models.sig_mp import RNN_SPECS
+    n_in, n_out, _, _, with_init = RNN_SPECS[name]
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(lengths_range[0], lengths_range[1] + 1,
+                          B).astype(np.int32)
+    lengths[0] = T
+    valid = (np.arange(T)[:, None] < lengths[None])[..., None]
+    xs = (rng.randn(T, B, n_in) * 0.5 * valid).astype(np.float32)
+    if name == "rnn8":
+        labels = (rng.rand(T, B, n_out) < 0.4).astype(np.float32)
+    else:
+        labels = rng.randn(T, B, n_out).astype(np.float32) * 0.5
+    labels *= valid
+    init = labels[0].copy() if with_init else None
+    return xs, labels, lengths, init
+
+
+def _train_loss(name, model):
+    from robustcap_tpu_torch.train import losses
+    if name == "rnn3":
+        return losses.velocity_horizon_loss
+    if name == "rnn7":
+        return losses.make_fk_pose_loss(model)
+    if name == "rnn8":
+        return losses.masked_bce_pos_weight(np.array([1.5, 0.7], np.float32))
+    return losses.masked_mse
+
+
+def _loss_and_grads(forward, params, loss_fn, inputs, dev, dtype):
+    r"""A module's loss and the gradients of every parameter, with dropout
+    0, through ``forward`` (``rnn_forward_padded`` or its plain loop)."""
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.nn.rnn import init_net_apply
+    from robustcap_tpu_torch.train.loop import _tensor_leaves
+    p = tree_map(lambda t: t.detach().to(dev, dtype, copy=True)
+                 .requires_grad_(), params)
+    xs, labels, lengths, init = inputs
+    state0 = None
+    if init is not None:
+        state0 = init_net_apply(p, torch.from_numpy(init).to(dev, dtype))
+    ys, _ = forward(p, torch.from_numpy(xs).to(dev, dtype), lengths, state0)
+    loss = loss_fn(ys, torch.from_numpy(labels).to(dev, dtype),
+                   torch.from_numpy(lengths))
+    leaves = _tensor_leaves(p)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.double().cpu() for g in grads]
+
+
+def _train_gap(a, b):
+    r"""(loss gap relative to the loss, largest gradient gap relative to
+    that gradient's largest entry)."""
+    (la, ga), (lb, gb) = a, b
+    share = max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(ga, gb))
+    return abs(la - lb) / abs(lb), share
+
+
+def _lstm_flops(H, n_in, n_out, valid_frames):
+    r"""Forward and backward FLOPs of one module over ``valid_frames``
+    row-frames: linear1, two LSTM layers, linear2, each 2 FLOP a
+    multiply-add forward and twice that backward."""
+    per_frame = 2 * (n_in * H + 2 * 4 * H * (H + H) + H * n_out)
+    return 3 * per_frame * valid_frames
+
+
+def _time_train_step(step, name):
+    r"""``(median ms, [least, most] ms, bytes, peak bytes)`` of ``step``
+    over ``TRAIN_REPS`` calls after ``TRAIN_WARMUP``, with CUDA events;
+    bytes is the peak allocation above what was held before the warm-ups
+    (the gradients, Adam's moments and the step's activations), peak the
+    whole peak allocation."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(TRAIN_REPS)]
+    losses = []
+    for a, b in marks:
+        a.record()
+        losses.append(step().detach())
+        b.record()
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in marks]
+    peak = torch.cuda.max_memory_allocated()
+    _require(all(bool(torch.isfinite(x)) for x in losses),
+             f"train step {name}: non-finite loss")
+    return (float(np.median(times)), [round(min(times), 3),
+                                      round(max(times), 3)],
+            peak - base, peak)
+
+
+def _cudnn_flat_tree(params, dev):
+    r"""``params`` on ``dev`` as leaves to train, its LSTM tensors the
+    parameters of an ``nn.LSTM``: one buffer in cuDNN's layout, which cuDNN
+    reads as it is instead of copying the weights in at each call."""
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    layers = params["layers"]
+    lstm = torch.nn.LSTM(layers[0]["w_ih"].shape[1],
+                         layers[0]["w_hh"].shape[1], len(layers), device=dev)
+    tree = tree_map(lambda t: t.to(dev).requires_grad_(),
+                    {k: v for k, v in params.items() if k != "layers"})
+    tree["layers"] = []
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            tree["layers"].append({})
+            for key, name in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                              ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                tree["layers"][i][key] = getattr(lstm, f"{name}_l{i}")
+                tree["layers"][i][key].copy_(layer[key])
+    buffers = {t.untyped_storage().data_ptr()
+               for layer in tree["layers"] for t in layer.values()}
+    _require(len(buffers) == 1, f"nn.LSTM kept its weights in {len(buffers)}"
+             " buffers, not one")
+    return tree
+
+
+def check_training_steps(model, dev):
+    r"""Phase 10 (a): one train step per module at full width, held against
+    the plain path on the card and float64 on the CPU, then timed."""
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.models.sig_mp import RNN_SPECS
+    from robustcap_tpu_torch.nn.rnn import (init_rnn_params,
+                                            rnn_forward_padded,
+                                            rnn_forward_padded_plain)
+    from robustcap_tpu_torch.smpl import ParametricModel
+    from robustcap_tpu_torch.train import make_forward_fn
+    from robustcap_tpu_torch.train.loop import (_clip_by_global_norm,
+                                                _tensor_leaves)
+    cpu = torch.device("cpu")
+    model64 = ParametricModel(data=model.data, dtype=torch.float64,
+                              device=cpu)
+    rows = {}
+    for k, (name, (n_in, n_out, H, dropout, with_init)) in enumerate(
+            RNN_SPECS.items()):
+        params = init_rnn_params(torch.Generator().manual_seed(k), n_in,
+                                 n_out, H, 2, with_init)
+        loss_fn = _train_loss(name, model)
+        big = _train_inputs(name, TRAIN_B, TRAIN_T, TRAIN_LENGTHS,
+                            TRAIN_SEED + k)
+        cudnn = _loss_and_grads(rnn_forward_padded, params, loss_fn, big,
+                                dev, torch.float32)
+        plain = _loss_and_grads(rnn_forward_padded_plain, params, loss_fn,
+                                big, dev, torch.float32)
+        gap_plain = _train_gap(cudnn, plain)
+        small = _train_inputs(name, *TRAIN_SMALL, (TRAIN_SMALL[1] // 2,
+                                                   TRAIN_SMALL[1]),
+                              TRAIN_SEED + k)
+        card = _loss_and_grads(rnn_forward_padded, params, loss_fn, small,
+                               dev, torch.float32)
+        ref = _loss_and_grads(rnn_forward_padded, params,
+                              _train_loss(name, model64), small, cpu,
+                              torch.float64)
+        gap_f64 = _train_gap(card, ref)
+        for what, gap in (("plain path on the card", gap_plain),
+                          ("float64 on the CPU", gap_f64)):
+            _require(max(gap) < TRAIN_AGREE,
+                     f"train step {name}: cuDNN against the {what}: loss "
+                     f"{gap[0]:.2e}, gradients {gap[1]:.2e} (bound "
+                     f"{TRAIN_AGREE})")
+
+        # the whole step, as train's loop runs it, with the module's dropout:
+        # on the tree's own tensors (cuDNN copies the LSTM weights into its
+        # layout at each call), then on weights kept in that layout
+        forward = make_forward_fn(dropout, with_init)
+        xs, labels, lengths, init = big
+        xs_d = torch.from_numpy(xs).to(dev)
+        labels_d = torch.from_numpy(labels).to(dev)
+        init_d = None if init is None else torch.from_numpy(init).to(dev)
+        lengths_h = torch.from_numpy(lengths)
+
+        def make_step(tree):
+            leaves = _tensor_leaves(tree)
+            opt = torch.optim.Adam(leaves, lr=1e-3)
+            gen = torch.Generator(device=dev).manual_seed(k)
+
+            def step():
+                loss = loss_fn(forward(tree, xs_d, lengths_h, init_d, gen),
+                               labels_d, lengths_h)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                _clip_by_global_norm(leaves, 1.0)
+                opt.step()
+                return loss
+            return step
+
+        step = make_step(tree_map(lambda t: t.to(dev).requires_grad_(),
+                                  params))
+        ms, spread, step_mem, peak = _time_train_step(step, name)
+        prof = _profile_top(step, 2)
+        syncs = _count_syncs(step)
+        del step
+        ms_flat, spread_flat, _, _ = _time_train_step(
+            make_step(_cudnn_flat_tree(params, dev)), name + " (flat)")
+        n_valid = int(lengths.sum())
+        flops = _lstm_flops(H, n_in, n_out, n_valid)
+        bound, _ = _bound_ms(0, flops)
+        rows[name] = dict(
+            H=H, ms=round(ms, 3), ms_range=spread,
+            seq_per_s=round(TRAIN_B / ms * 1e3, 1),
+            frames_per_s=round(n_valid / ms * 1e3), bound_ms=round(bound, 3),
+            ms_flat=round(ms_flat, 3), ms_flat_range=spread_flat,
+            gap_plain=[float(f"{g:.3g}") for g in gap_plain],
+            gap_f64=[float(f"{g:.3g}") for g in gap_f64],
+            step_gb=round(step_mem / 2**30, 3),
+            peak_gb=round(peak / 2**30, 3), syncs=sum(syncs.values()))
+        busy = "device time not measured (no device events)"
+        if prof is not None:
+            n_k, summed, dev_ms, top = prof
+            _require(dev_ms <= ms * (1 + TRAIN_BUSY_MARGIN),
+                     f"train step {name}: device busy {dev_ms:.3f} ms a step "
+                     f"against a step of {ms:.3f} ms: the busy time or its "
+                     "window is wrong")
+            idle = 1 - dev_ms / ms
+            rows[name].update(kernels=round(n_k), device_ms=round(dev_ms, 3),
+                              summed_ms=round(summed, 3), idle=round(idle, 4),
+                              top=top)
+            busy = (f"{n_k:.0f} kernels and copies, device busy "
+                    f"{dev_ms:.3f} ms a step ({summed:.3f} ms summed over "
+                    f"overlapping streams), idle {idle * 100:.1f}%; top "
+                    f"(name, ms, calls) {top}")
+        print(f"[train] {name} (H {H}) B={TRAIN_B} T={TRAIN_T}, {n_valid} "
+              f"valid frames: {ms:.3f} ms a step (median of {TRAIN_REPS}, "
+              f"CUDA events; range {spread}), {TRAIN_B / ms * 1e3:.1f} "
+              f"sequences/s, {n_valid / ms * 1e3:.0f} frames/s; bound "
+              f"{bound:.3f} ms ({flops / 1e12:.3f} TFLOP f32); {busy}; "
+              f"{sum(syncs.values())} synchronizing calls a step "
+              f"{dict(syncs)}; memory {step_mem / 2**30:.3f} GiB for the "
+              f"step over what was held before it, peak {peak / 2**30:.3f} "
+              f"GiB in all; weights in cuDNN's layout {ms_flat:.3f} ms "
+              f"(range {spread_flat}); cuDNN against "
+              f"the plain path: loss {gap_plain[0]:.2e}, gradients "
+              f"{gap_plain[1]:.2e}; against float64 on the CPU (B=8, T=64): "
+              f"loss {gap_f64[0]:.2e}, gradients {gap_f64[1]:.2e}", flush=True)
+    print("[train] steps " + json.dumps(rows), flush=True)
+    return rows
+
+
+def check_training_e2e(model, dev):
+    r"""Phase 10 (b): the six trainers for one epoch on a fixture corpus, a
+    resume, the merge, ``forward_offline`` of the merged weights through
+    the serve kernel, and the ``train`` command. Returns the serve
+    launches of the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+    from robustcap_tpu_torch.__main__ import main as cli
+    from robustcap_tpu_torch.config import Paths, SigMPConfig
+    from robustcap_tpu_torch.eval import build_aist_sequences
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import serve_scan
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.train import trainers
+
+    t_start = time.perf_counter()
+    corpus = build_fixture_dataset(model, n_seq=2, T=E2E_T, n_cam=2,
+                                   seed=E2E_SEED)
+    saved_paths, train_rnn3 = trainers.paths, trainers.train_rnn3
+    with tempfile.TemporaryDirectory() as root:
+        trainers.paths = Paths(data_root=root)
+        try:
+            wdir = os.path.join(root, "weights", "sig_mp")
+            secs = {}
+            for name in ("rnn2", "rnn3", "rnn4", "rnn6", "rnn7", "rnn8"):
+                t0 = time.perf_counter()
+                fn = getattr(trainers, f"train_{name}")
+                if name == "rnn8":
+                    fn(corpus, corpus, num_epoch=1, device=dev)
+                else:
+                    fn(corpus, corpus, corpus, corpus, num_epoch=1,
+                       device=dev,
+                       **({"body_model": model} if name == "rnn7" else {}))
+                secs[name] = round(time.perf_counter() - t0, 2)
+                _require(os.path.exists(os.path.join(
+                    wdir, name, "best_weights.pkl")), f"{name}: no weights")
+            trainers.train_rnn3(corpus, corpus, corpus, corpus, num_epoch=2,
+                                device=dev)
+            with open(os.path.join(wdir, "rnn3", "train_info.json")) as f:
+                info = json.load(f)
+            _require(info["epoch"] == 1 and info["total_it"] == 2,
+                     f"rnn3 resume: train_info {info}")
+            merged = trainers.merge_weights(device=dev)
+            seq = build_aist_sequences(corpus, num_cameras=2)[0]
+            serve_scan.LAUNCHES = 0
+            pose, tran = sig_mp.forward_offline(
+                merged, model, SigMPConfig(pallas_serve=True), seq.j2dc,
+                seq.accc, seq.oric, first_tran=seq.first_tran,
+                gravityc=seq.gravityc, device=dev)
+            launches = serve_scan.LAUNCHES
+            _require(launches == 1, f"forward_offline: {launches} serve "
+                     "launches, expected 1")
+            _require(bool(torch.isfinite(pose).all())
+                     and bool(torch.isfinite(tran).all()),
+                     "forward_offline of the merged weights: not finite")
+            aist = os.path.join(root, "aist")
+            os.makedirs(aist)
+            for kind in ("train", "val"):
+                torch.save(corpus, os.path.join(aist, f"{kind}.pt"))
+            shutil.rmtree(os.path.join(wdir, "rnn3"))
+            # the command runs the trainer as it is, cut to one epoch
+            trainers.train_rnn3 = functools.partial(train_rnn3, num_epoch=1)
+            t0 = time.perf_counter()
+            cli(["train", "--rnn", "3", "--aist", aist, "--device", str(dev)])
+            secs["cli rnn3"] = round(time.perf_counter() - t0, 2)
+            _require(os.path.exists(os.path.join(wdir, "rnn3",
+                                                 "best_weights.pkl")),
+                     "train CLI: no weights")
+        finally:
+            trainers.paths = saved_paths
+            trainers.train_rnn3 = train_rnn3
+    print(f"[train] end to end on a fixture corpus (2 motions x 2 cameras x "
+          f"{E2E_T} frames): one epoch each in {secs} s, rnn3 resumed to a "
+          f"second epoch, merged; forward_offline of the merged weights "
+          f"through the serve kernel ({launches} launch) finite over "
+          f"{seq.length} frames; phase 10 (b) in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"serve_scan": launches}
 
 
 def main():
@@ -2195,6 +2591,12 @@ def main():
         launches[key] += n
     for key, n in check_smplify(params, model, dev).items():
         launches[key] += n
+    t10 = time.perf_counter()
+    check_training_steps(model, dev)
+    for key, n in check_training_e2e(model, dev).items():
+        launches[key] += n
+    print(f"[train] phase 10 in {time.perf_counter() - t10:.1f} s",
+          flush=True)
 
     kernels = [
         dict(name="lstm_scan", route="cuda",

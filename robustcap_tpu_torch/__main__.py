@@ -1,8 +1,12 @@
-r"""Command-line interface of the port: the offline evaluation and the
-serving workflows.
+r"""Command-line interface of the port: the offline evaluation, training
+and the serving workflows.
 
     python -m robustcap_tpu_torch eval [--dataset aist|tc|pw3d|pw3d_occ]
         [--weights W] [--no-smplify] [--no-cache] [--device cuda]
+    python -m robustcap_tpu_torch train --aist DIR [--amass DIR]
+        [--rnn all|2|3|4|6|7|8] [--device cuda]
+    python -m robustcap_tpu_torch quantize --weights W --out PATH
+        [--torch-save] [--device cuda]
     python -m robustcap_tpu_torch export --out DIR [--weights W] [--live]
         [--int8-compute] [--chunk-len K --pallas-serve] [--device cuda]
     python -m robustcap_tpu_torch latency [--weights W] [--frames N]
@@ -12,11 +16,16 @@ serving workflows.
 
 The flags are the JAX package's (``python -m robustcap_tpu``), with
 ``--device`` in place of ``--platforms``. ``--weights`` reads the
-reference's ``.pt`` checkpoint, or a pickle of the JAX package's parameter
-tree (``train.save_pytree``) whose arrays are float32 or int8; without it
-the weights are random (seed 0). ``eval`` reads the datasets and caches
-under ``config.paths`` and prints the mean MPJPE, PVE, PA-MPJPE and root
-position error in metres. The other subcommands are not ported yet.
+reference's ``.pt`` checkpoint, or a pickle of a parameter tree
+(``train.save_pytree`` of either package) whose arrays are float32 or int8;
+without it the weights are random (seed 0). ``eval`` reads the datasets and
+caches under ``config.paths`` and prints the mean MPJPE, PVE, PA-MPJPE and
+root position error in metres. ``train`` reads ``train.pt`` and ``val.pt``
+from each directory, trains the chosen modules into
+``config.paths.weight_dir/sig_mp`` (``all`` trains the six and merges them
+into ``best_weights.pkl``). ``quantize`` writes the int8 tree as a pickle,
+or with ``--torch-save`` as a ``torch.save`` checkpoint
+(``train.save_checkpoint``).
 """
 
 from __future__ import annotations
@@ -24,25 +33,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import pickle
+import os
 import sys
 
 __all__ = ["main"]
-
-
-class _NumpyTreeUnpickler(pickle.Unpickler):
-    r"""Unpickles a tree of numpy arrays and nothing else."""
-
-    def find_class(self, module, name):
-        if module.split(".")[0] == "ml_dtypes":
-            raise ValueError(
-                "this pickle holds bfloat16 arrays, which need the ml_dtypes "
-                "package; save the tree with float32 (or int8) arrays instead")
-        if module.split(".")[0] == "numpy" or (module, name) in (
-                ("builtins", "dict"), ("builtins", "list"),
-                ("builtins", "tuple"), ("collections", "OrderedDict")):
-            return super().find_class(module, name)
-        raise ValueError(f"weights pickle: refusing to load {module}.{name}")
 
 
 def _load_params(args):
@@ -51,10 +45,8 @@ def _load_params(args):
         if args.weights.endswith(".pt"):
             from robustcap_tpu_torch.convert import load_torch_checkpoint
             return load_torch_checkpoint(args.weights, args.device)
-        from robustcap_tpu_torch.convert import params_from_numpy
-        with open(args.weights, "rb") as f:
-            tree = _NumpyTreeUnpickler(f).load()
-        return params_from_numpy(tree, args.device)
+        from robustcap_tpu_torch.train.loop import load_pytree
+        return load_pytree(args.weights, args.device)
     import torch
     print("warning: no --weights given; using random parameters",
           file=sys.stderr)
@@ -78,6 +70,41 @@ def cmd_eval(args):
         out = evaluate_pw3d_ours(occ=args.dataset == "pw3d_occ", **kw)
     print(json.dumps({k: out[k] for k in
                       ("mpjpe", "pve", "pampjpe", "tran_error")}))
+
+
+def cmd_train(args):
+    r"""Train one module or all six (``train/trainers.py``)."""
+    from robustcap_tpu_torch.eval.datasets import load_torch_file
+    from robustcap_tpu_torch.train import trainers
+
+    def pair(root):
+        if not root:
+            return None, None
+        return tuple(load_torch_file(os.path.join(root, f"{kind}.pt"))
+                     for kind in ("train", "val"))
+
+    aist_tr, aist_va = pair(args.aist)
+    amass_tr, amass_va = pair(args.amass)
+    kw = {"device": args.device}
+    if args.rnn == "all":
+        trainers.train_all(aist_tr, aist_va, amass_tr, amass_va, **kw)
+    elif args.rnn == "8":
+        trainers.train_rnn8(amass_tr, amass_va, **kw)
+    else:
+        getattr(trainers, f"train_rnn{args.rnn}")(aist_tr, aist_va, amass_tr,
+                                                   amass_va, **kw)
+
+
+def cmd_quantize(args):
+    r"""The int8 serving weights of a checkpoint: every 2-D weight as an
+    int8 record (``nn.rnn.quantize_params``)."""
+    from robustcap_tpu_torch.nn.rnn import quantize_params
+    from robustcap_tpu_torch.train import save_checkpoint, save_pytree
+    from robustcap_tpu_torch.train.loop import _tensor_leaves
+    qp = quantize_params(_load_params(args))
+    (save_checkpoint if args.torch_save else save_pytree)(qp, args.out)
+    nbytes = sum(t.numel() * t.element_size() for t in _tensor_leaves(qp))
+    print(json.dumps({"out": args.out, "bytes": int(nbytes)}))
 
 
 def _int8_mode(params, cfg):
@@ -182,6 +209,24 @@ def main(argv=None):
                          "(ops/serve_scan.py)")
     device_flag(px)
     px.set_defaults(fn=cmd_export)
+
+    pt = sub.add_parser("train", help="train fusion RNNs")
+    pt.add_argument("--rnn", default="all",
+                    choices=["all", "2", "3", "4", "6", "7", "8"])
+    pt.add_argument("--aist", required=True)
+    pt.add_argument("--amass")
+    device_flag(pt)
+    pt.set_defaults(fn=cmd_train)
+
+    pq = sub.add_parser("quantize",
+                        help="int8-quantize a checkpoint for serving")
+    pq.add_argument("--weights", required=True,
+                    help="reference .pt or a parameter-tree pickle")
+    pq.add_argument("--out", required=True, help="output path")
+    pq.add_argument("--torch-save", action="store_true",
+                    help="write a torch.save checkpoint instead of a pickle")
+    device_flag(pq)
+    pq.set_defaults(fn=cmd_quantize)
 
     args = p.parse_args(argv)
     args.fn(args)

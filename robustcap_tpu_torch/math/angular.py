@@ -10,16 +10,18 @@ import math
 
 import torch
 
-from .general import normalize_tensor, vector_cross_matrix
+from .general import lerp, normalize_tensor, vector_cross_matrix
 
 __all__ = [
     "RotationRepresentation", "to_rotation_matrix", "radian_to_degree",
     "degree_to_radian", "angle_between", "svd_rotate",
     "axis_angle_to_rotation_matrix", "rotation_matrix_to_axis_angle",
-    "r6d_to_rotation_matrix", "rotation_matrix_to_r6d",
+    "r6d_to_rotation_matrix", "r6d_to_rotation_matrix_nd",
+    "rotation_matrix_to_r6d",
     "quaternion_to_axis_angle", "axis_angle_to_quaternion",
     "quaternion_to_rotation_matrix", "rotation_matrix_to_quaternion",
-    "euler_angle_to_rotation_matrix",
+    "euler_angle_to_rotation_matrix", "generate_random_rotation_matrix",
+    "generate_random_rotation_matrix_constrained",
 ]
 
 _EPS = 1e-8
@@ -141,6 +143,16 @@ def r6d_to_rotation_matrix(r6d: torch.Tensor) -> torch.Tensor:
     return torch.stack((col0, col1, col2), dim=-1)
 
 
+def r6d_to_rotation_matrix_nd(r6d: torch.Tensor) -> torch.Tensor:
+    r"""[..., 6] -> [..., 3, 3]: :func:`r6d_to_rotation_matrix` with the
+    leading axes kept as they are (no flatten)."""
+    col0 = normalize_tensor(r6d[..., 0:3], eps=_EPS)
+    proj = (col0 * r6d[..., 3:6]).sum(-1, keepdim=True)
+    col1 = normalize_tensor(r6d[..., 3:6] - proj * col0, eps=_EPS)
+    col2 = torch.linalg.cross(col0, col1, dim=-1)
+    return torch.stack((col0, col1, col2), dim=-1)
+
+
 def rotation_matrix_to_r6d(r: torch.Tensor) -> torch.Tensor:
     r"""Rotation matrix -> 6D (first two columns, column-major)."""
     r = r.reshape(-1, 3, 3)
@@ -223,3 +235,23 @@ def svd_rotate(source_points: torch.Tensor, target_points: torch.Tensor,
                    * (source_points @ rotation.transpose(1, 2))
                    + translation.transpose(1, 2))
     return rotation, translation[..., 0], scale, transformed
+
+
+def generate_random_rotation_matrix(generator: torch.Generator, n: int = 1
+                                    ) -> torch.Tensor:
+    r"""``n`` uniform random rotations [n, 3, 3] from normalized Gaussian
+    quaternions, drawn from ``generator`` on its device."""
+    q = torch.randn((n, 4), generator=generator, device=generator.device)
+    return quaternion_to_rotation_matrix(q)
+
+
+def generate_random_rotation_matrix_constrained(
+        generator: torch.Generator, n: int = 1, y=(-180, 180), p=(-90, 90),
+        r=(-180, 180)) -> torch.Tensor:
+    r"""``n`` random rotations [n, 3, 3] with yaw, pitch and roll drawn
+    uniformly from the given ranges in degrees, composed in local Y-X-Z
+    order; drawn from ``generator`` on its device."""
+    u = torch.rand((3, n), generator=generator, device=generator.device)
+    angles = [degree_to_radian(lerp(lo, hi, u[i]))
+              for i, (lo, hi) in enumerate((y, p, r))]
+    return euler_angle_to_rotation_matrix(torch.stack(angles, 1), seq="YXZ")

@@ -14,22 +14,36 @@ the input's dtype; and int8 (:func:`quantize_params`), where every 2-D
 weight is a ``{"q": int8 [out, in], "scale": f32 [out, 1]}`` record that is
 dequantized to bf16 for compute, or, with ``int8_compute``, whose gate
 matrices meet dynamically quantized activations in an int8 x int8 product
-with int32 sums. The Pure/Cycle variants are not ported.
+with int32 sums.
+
+Training runs :func:`rnn_forward_padded` over padded [T, B, in] batches with
+a ``lengths`` vector: ``torch.nn.LSTM`` (cuDNN on the card) over a packed
+sequence, so each row's output stops and its (h, c) freezes at its length,
+as in the reference (``pack_padded_sequence``); dropout after linear1's
+ReLU and between LSTM layers. :func:`rnn_forward_padded_plain` is the same
+function as a per-frame loop over :func:`rnn_step`, kept as the reference
+the cuDNN path is held against. The PureRNN (an LSTM with ``proj_size``)
+and CycleRNN (autoregressive) variants have padded forwards too.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..device import resolve_device, tree_map
 
 __all__ = [
     "init_linear", "init_lstm_layer", "init_rnn_params", "init_state",
     "lstm_cell", "rnn_step", "rnn_group_step", "rnn_pair_step", "rnn_scan",
-    "init_net_apply", "rnn_params_from_torch", "cast_params",
+    "rnn_forward_padded", "rnn_forward_padded_plain", "init_net_apply",
+    "rnn_params_from_torch", "pure_rnn_params_from_torch",
+    "pure_rnn_forward_padded", "cycle_rnn_params_from_torch",
+    "cycle_rnn_forward_padded", "cast_params",
     "quantize_tensor", "dequantize_tensor", "quantize_params",
     "dequantize_params", "dequantize_non_gate_params", "is_quantized",
     "quantize_activation", "prepare_scan_params",
@@ -265,23 +279,39 @@ def lstm_cell(layer, x, h, c, *, int8_compute: bool = False):
     return h_new, c_new
 
 
-def rnn_step(params, x, state, *, int8_compute: bool = False):
+def _dropout(x, p, generator):
+    r"""Inverted dropout: each entry kept with probability ``1 - p`` (mask
+    drawn from ``generator``) and scaled by ``1 / (1 - p)``."""
+    keep = 1.0 - p
+    return x * torch.bernoulli(torch.full_like(x, keep),
+                               generator=generator) / keep
+
+
+def rnn_step(params, x, state, *, dropout: float = 0.0,
+             generator: torch.Generator = None, int8_compute: bool = False):
     r"""One frame through linear1 -> ReLU -> LSTM stack -> linear2.
     ``state`` is (h, c), each [L, ..., H]; returns (out, (h, c)). The math
     runs in the weights' dtype (bf16 for int8 records) and the results come
-    back in ``x``'s dtype."""
+    back in ``x``'s dtype. With ``dropout > 0`` and a ``generator`` (on
+    ``x``'s device) it trains: dropout after linear1's ReLU and between
+    LSTM layers, never after the last."""
     h, c = state
     w_dtype = _compute_dtype(params)
     out_dtype = x.dtype
     if x.dtype != w_dtype:
         x, h, c = x.to(w_dtype), h.to(w_dtype), c.to(w_dtype)
+    train = dropout > 0.0 and generator is not None
     inp = torch.relu(_linear(params["linear1"], x))
+    if train:
+        inp = _dropout(inp, dropout, generator)
     new_h, new_c = [], []
     for l, layer in enumerate(params["layers"]):
         hn, cn = lstm_cell(layer, inp, h[l], c[l], int8_compute=int8_compute)
         new_h.append(hn)
         new_c.append(cn)
         inp = hn
+        if train and l < len(params["layers"]) - 1:
+            inp = _dropout(inp, dropout, generator)
     out = _linear(params["linear2"], inp)
     return (out.to(out_dtype), (torch.stack(new_h).to(out_dtype),
                                 torch.stack(new_c).to(out_dtype)))
@@ -322,6 +352,142 @@ def rnn_scan(params, xs, state0=None, *, int8_compute: bool = False):
     return torch.stack(ys), state
 
 
+# ---------------------------------------------------------------------------
+# Padded batches (training)
+# ---------------------------------------------------------------------------
+
+
+class _CallerWeightsLSTM(torch.nn.LSTM):
+    r"""``nn.LSTM`` run on a parameter dict's own tensors through
+    ``torch.func.functional_call``. ``flatten_parameters`` would move those
+    tensors' storage into one buffer in place (bumping their autograd
+    versions); left undone, cuDNN copies the weights itself each call (a
+    train step takes as long either way, within its run-to-run spread:
+    ``chip_smoke.py`` phase 10 times both), and its warning about that copy
+    is silenced where the shell runs."""
+
+    def flatten_parameters(self):
+        pass
+
+
+_CUDNN_COPY_WARNING = "RNN module weights are not part of single contiguous"
+
+
+def _host_lengths(lengths) -> torch.Tensor:
+    r"""``lengths`` as a CPU int64 tensor. A device tensor is refused: the
+    packed sequence needs its lengths on the host, and reading them back
+    would wait for the device."""
+    if isinstance(lengths, torch.Tensor) and lengths.device.type != "cpu":
+        raise ValueError("lengths must be on the host (numpy, a list or a "
+                         "CPU tensor), not on " + str(lengths.device))
+    return torch.as_tensor(np.asarray(lengths), dtype=torch.int64)
+
+
+def _valid_mask(lengths, T, device):
+    r"""[T, B] bool, true where frame t < the row's length, on ``device``
+    (uploaded without waiting for the device)."""
+    return torch.arange(T)[:, None].lt(lengths[None]).to(device,
+                                                         non_blocking=True)
+
+
+def _lstm_packed(layers, xs, lengths, state0=None, dropout: float = 0.0,
+                 training: bool = False):
+    r"""An LSTM stack over padded ``xs [T, B, in]`` as ``nn.LSTM`` runs a
+    packed sequence: ``(out [T, B, H or proj], (h, c))``, out zero past each
+    row's length and (h, c) each row's state at its length. ``layers`` may
+    carry ``w_hr`` (an LSTM with ``proj_size``). Reads nothing back from
+    the device."""
+    l0 = layers[0]
+    proj = _wshape(l0["w_hr"])[0] if "w_hr" in l0 else 0
+    lstm = _CallerWeightsLSTM(
+        _wshape(l0["w_ih"])[1], _wshape(l0["w_ih"])[0] // 4, len(layers),
+        dropout=dropout if training else 0.0, proj_size=proj, device="meta")
+    # cuDNN keeps what its backward needs only in training mode
+    lstm.train(training or torch.is_grad_enabled())
+    weights = {}
+    for k, layer in enumerate(layers):
+        weights.update({f"weight_ih_l{k}": layer["w_ih"],
+                        f"weight_hh_l{k}": layer["w_hh"],
+                        f"bias_ih_l{k}": layer["b_ih"],
+                        f"bias_hh_l{k}": layer["b_hh"]})
+        if proj:
+            weights[f"weight_hr_l{k}"] = layer["w_hr"]
+    # rows sorted by length on the host: with enforce_sorted=False the
+    # packed sequence would carry its permutation to the device and read
+    # it back to unpad, each a wait for the device
+    order = torch.argsort(lengths, descending=True, stable=True)
+    order_d, inverse_d = (i.to(xs.device, non_blocking=True)
+                          for i in (order, torch.argsort(order)))
+    packed = pack_padded_sequence(xs.index_select(1, order_d),
+                                  lengths[order])
+    args = (packed,) if state0 is None else (
+        packed, tuple(s.index_select(1, order_d) for s in state0))
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_CUDNN_COPY_WARNING)
+        out, (h, c) = torch.func.functional_call(lstm, weights, args)
+    out, _ = pad_packed_sequence(out, total_length=xs.shape[0])
+    return out.index_select(1, inverse_d), (h.index_select(1, inverse_d),
+                                            c.index_select(1, inverse_d))
+
+
+def rnn_forward_padded(params, xs, lengths, state0=None, *,
+                       dropout: float = 0.0,
+                       generator: torch.Generator = None):
+    r"""Padded-batch forward of one module: ``xs [T, B, in]``, ``lengths
+    [B]`` (each >= 1, on the host) -> ``(ys [T, B, out], (h, c))``.
+
+    The LSTM stack runs as ``torch.nn.LSTM`` over a packed sequence (cuDNN
+    on the card), so past a row's length its output is zero and its (h, c)
+    stays as it was at the length, as if each row ran alone. ``state0``
+    (each [L, B, H]) seeds the stack, zeros by default. With ``dropout > 0``
+    and a ``generator`` (on ``xs``' device) it trains: dropout after
+    linear1's ReLU drawn from ``generator``, and the LSTM's own dropout
+    between layers, drawn from the device's default generator. int8 records
+    are dequantized first; the math runs in the weights' dtype and returns
+    ``xs``' dtype."""
+    params = dequantize_params(params)
+    lengths = _host_lengths(lengths)
+    T = xs.shape[0]
+    mask = _valid_mask(lengths, T, xs.device)[..., None]
+    w_dtype = _compute_dtype(params)
+    out_dtype = xs.dtype
+    x = xs.to(w_dtype)
+    if state0 is not None:
+        state0 = (state0[0].to(w_dtype), state0[1].to(w_dtype))
+    train = dropout > 0.0 and generator is not None
+    y = torch.relu(_linear(params["linear1"], x))
+    if train:
+        y = _dropout(y, dropout, generator)
+    out, (h, c) = _lstm_packed(params["layers"], y, lengths, state0,
+                               dropout, train)
+    ys = torch.where(mask, _linear(params["linear2"], out), 0.0)
+    return ys.to(out_dtype), (h.to(out_dtype), c.to(out_dtype))
+
+
+def rnn_forward_padded_plain(params, xs, lengths, state0=None, *,
+                             dropout: float = 0.0,
+                             generator: torch.Generator = None):
+    r""":func:`rnn_forward_padded` as a loop over frames of
+    :func:`rnn_step`: at frame t a row past its length keeps its carry and
+    outputs zero. Dropout (with ``generator``) is drawn per frame, in the
+    same places. The reference the cuDNN path is held against."""
+    params = dequantize_params(params)
+    lengths = _host_lengths(lengths)
+    T = xs.shape[0]
+    mask = _valid_mask(lengths, T, xs.device)
+    state = init_state(params, xs.shape[1:-1], xs.dtype) if state0 is None \
+        else state0
+    ys = []
+    for t in range(T):
+        out, new = rnn_step(params, xs[t], state, dropout=dropout,
+                            generator=generator)
+        valid = mask[t][:, None]
+        state = (torch.where(valid, new[0], state[0]),
+                 torch.where(valid, new[1], state[1]))
+        ys.append(torch.where(valid, out, 0.0))
+    return torch.stack(ys), state
+
+
 def init_net_apply(params, first_label):
     r"""RNNWithInit's (h0, c0) regression from the first label:
     ``first_label`` [..., out] -> (h, c) each [L, ..., H], in torch's
@@ -338,11 +504,7 @@ def init_net_apply(params, first_label):
     return h, c
 
 
-def rnn_params_from_torch(state_dict, prefix: str = "", device="cuda"):
-    r"""One reference RNN module from a torch state_dict (numpy or tensor
-    values): ``{prefix}linear1.weight``, ``{prefix}rnn.weight_ih_l{k}``, ...,
-    optionally ``{prefix}init_net.{0,2,4}.weight``; on ``device``, which
-    raises without a card unless it is ``"cpu"`` (``resolve_device``)."""
+def _tensor_getter(state_dict, prefix, device):
     device = resolve_device(device)
 
     def get(name):
@@ -352,6 +514,15 @@ def rnn_params_from_torch(state_dict, prefix: str = "", device="cuda"):
                                  copy=True)
         return torch.tensor(np.array(v), dtype=torch.float32, device=device)
 
+    return get
+
+
+def rnn_params_from_torch(state_dict, prefix: str = "", device="cuda"):
+    r"""One reference RNN module from a torch state_dict (numpy or tensor
+    values): ``{prefix}linear1.weight``, ``{prefix}rnn.weight_ih_l{k}``, ...,
+    optionally ``{prefix}init_net.{0,2,4}.weight``; on ``device``, which
+    raises without a card unless it is ``"cpu"`` (``resolve_device``)."""
+    get = _tensor_getter(state_dict, prefix, device)
     params = {
         "linear1": {"w": get("linear1.weight"), "b": get("linear1.bias")},
         "linear2": {"w": get("linear2.weight"), "b": get("linear2.bias")},
@@ -372,3 +543,63 @@ def rnn_params_from_torch(state_dict, prefix: str = "", device="cuda"):
             for i in (0, 2, 4)
         ]
     return params
+
+
+# ---------------------------------------------------------------------------
+# PureRNN and CycleRNN (the reference's other module kinds)
+# ---------------------------------------------------------------------------
+
+
+def pure_rnn_params_from_torch(state_dict, prefix: str = "", device="cuda"):
+    r"""A PureRNN (``nn.LSTM`` with ``proj_size``) from its state_dict:
+    ``{"layers": [{"w_ih" [4H, in], "w_hh" [4H, proj], "b_ih", "b_hh",
+    "w_hr" [proj, H]}, ...]}`` on ``device``."""
+    get = _tensor_getter(state_dict, prefix, device)
+    layers, k = [], 0
+    while (prefix + f"rnn.weight_ih_l{k}") in state_dict:
+        layers.append({name: get(f"rnn.{key}_l{k}") for name, key in (
+            ("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+            ("b_ih", "bias_ih"), ("b_hh", "bias_hh"),
+            ("w_hr", "weight_hr"))})
+        k += 1
+    return {"layers": layers}
+
+
+def pure_rnn_forward_padded(params, xs, lengths):
+    r"""PureRNN's forward: ``xs [T, B, in]`` -> ``ys [T, B, proj]``, zero
+    past each row's length (``lengths`` on the host), through
+    ``nn.LSTM`` over a packed sequence."""
+    params = dequantize_params(params, torch.float32)
+    ys, _ = _lstm_packed(params["layers"], xs, _host_lengths(lengths))
+    return ys
+
+
+# CycleRNN's state_dict has the plain module's layout
+cycle_rnn_params_from_torch = rnn_params_from_torch
+
+
+def cycle_rnn_forward_padded(params, xs, lengths, pred_weight: float = 1.0):
+    r"""CycleRNN's forward, autoregressive: each frame's input tail (its
+    last ``out`` entries) is replaced by ``pred_weight * previous output +
+    (1 - pred_weight) * the given tail``, both detached; frame 0's
+    "previous output" is its own given tail. ``xs [T, B, in]`` -> ``ys
+    [T, B, out]``, zero past each row's length; a row past its length keeps
+    its carry and its previous output."""
+    params = dequantize_params(params)
+    out_size = _wshape(params["linear2"]["w"])[0]
+    mask = _valid_mask(_host_lengths(lengths), xs.shape[0], xs.device)
+    state = init_state(params, xs.shape[1:2], xs.dtype)
+    prev = xs[0, :, -out_size:]
+    ys = []
+    for t in range(xs.shape[0]):
+        x = xs[t]
+        tail = (prev.detach() * pred_weight
+                + x[:, -out_size:].detach() * (1.0 - pred_weight))
+        out, new = rnn_step(params, torch.cat([x[:, :-out_size], tail], -1),
+                            state)
+        valid = mask[t][:, None]
+        state = (torch.where(valid, new[0], state[0]),
+                 torch.where(valid, new[1], state[1]))
+        prev = torch.where(valid, out, prev)
+        ys.append(torch.where(valid, out, 0.0))
+    return torch.stack(ys)

@@ -29,7 +29,8 @@ def _submodules():
 # quantization, the int8 step, and the serve path in its three modes; then
 # the batched step and the offline evaluation on a fixture corpus, and
 # SMPLify's refinement of it; then a serving bundle exported and loaded, the
-# multiplexer and the live server.
+# multiplexer and the live server; then training: the loop with dropout, a
+# trainer with its features, the AMASS camera synthesis and the merge.
 _DRIVE = """
 import torch
 from robustcap_tpu_torch.config import SigMPConfig
@@ -81,6 +82,7 @@ refined = refine_sequences_batched(
     [(s.pose_gt, s.tran_gt) for s in seqs], seqs, model=model,
     pad_to_multiple=8, group_size=2, device="cpu")
 assert refined[0][0].shape == (6, 24, 3, 3)
+import os
 import tempfile
 import numpy as np
 from robustcap_tpu_torch.serving import ServingBundle, export_serving_bundle
@@ -103,6 +105,27 @@ pose_aa, _ = LiveServer(p, model, device="cpu").process(
     x["j2dc"][0].numpy(), x["oric"][0].numpy(), x["accc"][0].numpy(),
     np.eye(3, dtype=np.float32))
 assert pose_aa.shape == (24, 3)
+from robustcap_tpu_torch.train import (SeqDataset, features, make_forward_fn,
+                                       masked_mse, merge_weights, save_pytree,
+                                       train, train_rnn8)
+corpus = build_fixture_dataset(model, n_seq=2, T=8, n_cam=1, seed=2)
+with tempfile.TemporaryDirectory() as d:
+    ds = SeqDataset([np.ones((6, 3), np.float32)] * 2,
+                    [np.ones((6, 2), np.float32)] * 2)
+    train(rnn.init_rnn_params(torch.Generator().manual_seed(0), 3, 2, 4),
+          make_forward_fn(0.1), masked_mse, ds, ds, d, num_epoch=1,
+          device="cpu")
+    train_rnn8(corpus, corpus, save_dir=d + "/run8", num_epoch=1,
+               device="cpu")
+    for name in specs:
+        os.makedirs(f"{d}/{name}")
+        save_pytree(p[name], f"{d}/{name}/best_weights.pkl")
+    assert set(merge_weights(d, device="cpu")) == set(specs)
+base = features.amass_mp_base(corpus)
+aug, _ = features.amass_camera_augment(
+    torch.Generator().manual_seed(0), torch.from_numpy(base[0][0]),
+    torch.from_numpy(base[1][0]), torch.ones(16), target="rnn6")
+assert torch.isfinite(aug).all()
 """
 
 
@@ -140,7 +163,9 @@ def test_no_jax_import_in_sources():
                   if n.endswith(".py")]
     assert len(files) > 10
     for name in ("smplify/__init__.py", "smplify/prior.py",
-                 "smplify/losses.py", "smplify/runner.py", "ops/lbfgs.py"):
+                 "smplify/losses.py", "smplify/runner.py", "ops/lbfgs.py",
+                 "train/__init__.py", "train/data.py", "train/features.py",
+                 "train/losses.py", "train/loop.py", "train/trainers.py"):
         assert os.path.join(PKG, name) in files, name
     for path in files:
         for mod in _imports(path):
@@ -153,7 +178,7 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from robustcap_tpu_torch.convert import params_from_numpy
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
@@ -227,6 +252,48 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         smplify_runner(pose, np.zeros((2, 3)), z, np.zeros((2, 6, 3, 3)),
                        2, np.eye(3), model=model)
+    from robustcap_tpu_torch.__main__ import main
+    from robustcap_tpu_torch.nn.rnn import (cycle_rnn_params_from_torch,
+                                            pure_rnn_params_from_torch)
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.train import (SeqDataset, batch_inference,
+                                           load_checkpoint, load_pytree,
+                                           make_forward_fn, masked_mse,
+                                           merge_weights, save_pytree, train,
+                                           trainers)
+    monkeypatch.undo()
+    corpus = build_fixture_dataset(model, n_seq=1, T=6, n_cam=1, seed=2)
+    aist = tmp_path / "aist"
+    os.makedirs(aist)
+    for kind in ("train", "val"):
+        torch.save(corpus, aist / f"{kind}.pt")
+    save_pytree(params["rnn3"], str(tmp_path / "w.pkl"))
+    for name in params:
+        os.makedirs(tmp_path / name)
+        save_pytree(params[name], str(tmp_path / name / "best_weights.pkl"))
+    _no_cuda(monkeypatch)
+    ds = SeqDataset([np.ones((4, 141), np.float32)],
+                    [np.ones((4, 3), np.float32)])
+    for call in (
+            lambda: train(params["rnn3"], make_forward_fn(0.0), masked_mse,
+                          ds, ds, str(tmp_path / "run")),
+            lambda: batch_inference(params["rnn3"], make_forward_fn(0.0), ds),
+            lambda: trainers.train_rnn3(corpus, corpus,
+                                        save_dir=str(tmp_path / "r3")),
+            lambda: trainers.train_rnn7(corpus, corpus,
+                                        save_dir=str(tmp_path / "r7")),
+            lambda: trainers.train_rnn8(corpus, corpus,
+                                        save_dir=str(tmp_path / "r8")),
+            lambda: merge_weights(str(tmp_path)),
+            lambda: load_pytree(str(tmp_path / "w.pkl")),
+            lambda: load_checkpoint(str(tmp_path / "w.pkl")),
+            lambda: pure_rnn_params_from_torch({}),
+            lambda: cycle_rnn_params_from_torch({}),
+            lambda: main(["train", "--rnn", "3", "--aist", str(aist)]),
+            lambda: main(["quantize", "--weights", str(tmp_path / "w.pkl"),
+                          "--out", str(tmp_path / "q.pkl")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])
