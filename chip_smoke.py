@@ -107,7 +107,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
    epoch, ``merge_weights``, ``forward_offline`` of the merged weights
    through the serve kernel (its launch counted into the kernel line;
    finite outputs), and ``python -m robustcap_tpu_torch train --rnn 3``
-   in-process on ``.pt`` files written from the corpus.
+   in-process on ``.pt`` files written from the corpus;
+11. data parallelism and preprocessing (``parallel/``, ``preprocess/``, no
+   kernel): (a) NCCL at one rank (``initialize_distributed`` with a
+   localhost coordinator, ``make_mesh``): ``train(mesh=)``'s DP step of
+   rnn4 and rnn2 at phase 10's shape, dropout 0, against the plain step
+   on the same batch (loss equal, parameters within ``DP_AGREE`` of the
+   step's move), both timed, with the NCCL all-reduce's device time
+   (``torch.profiler``) and the gradient bytes; (b) two ranks sharing the
+   card over gloo (this script run twice with ``--gloo-child``, within
+   ``CHILD_TIMEOUT_S``): rnn2's DP step with unequal lengths against one
+   process on the whole batch, ``run_sequences(mesh=)`` and the float64
+   ``refine_sequences_batched(mesh=)`` against unsharded, gloo's own times,
+   and full-width rnn2 through ``train(mesh=)`` (early stop and the
+   plateau on rank 0's validation, then a resume) with the same parameters
+   on both ranks and one metrics line a validation; and two processes asking NCCL for two ranks on the card, which must be
+   refused; (c) raw AIST++, TotalCapture, 3DPW(-OCC) and AMASS trees from
+   the port's fixtures, ``python -m robustcap_tpu_torch preprocess`` over
+   every ``--dataset`` choice on the card, the work dicts held against the
+   CPU's, and ``amass_sequence_to_work`` timed on one 12,000-frame motion
+   on the card and the CPU with its synchronizing calls.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -2544,6 +2563,755 @@ def check_training_e2e(model, dev):
     return {"serve_scan": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: data parallelism and corpus preprocessing
+# ---------------------------------------------------------------------------
+
+DP_MODULES = ("rnn4", "rnn2")   # H=1280 and one H=512 module
+DP_AGREE = 1e-6        # one rank: parameters against the step's move
+# two ranks over gloo against one process, the DP step in float64 (in
+# float32 the ranks' partial sums of ~25,000 row-frames round apart by
+# ~1e-5 of the largest gradient: printed, not held): the loss relative to
+# itself, the parameters after SGD against the step's move (Adam's first
+# step divides each gradient by its own size, so near-zero entries would
+# turn rounding into whole moves)
+GLOO_LOSS = 1e-6
+GLOO_PARAMS = 1e-5
+GLOO_EVAL = 1e-5       # sharded run_sequences against unsharded
+GLOO_SHARE = 0.1       # sharded refinement: share of the refinement's move
+GLOO_SGD_LR = 0.1
+GLOO_MODULE = "rnn2"
+GLOO_SEED = 14
+# train(mesh=) in the gloo children: rank 0's validation values improve
+# twice, then rise, so early stop (threshold 2) ends the first run at the
+# fourth validation and the plateau (patience 0) scales the lr at the third;
+# rank 1's own values keep falling. 12 sequences at batch 4: 3 steps an
+# epoch, then a resume to the end of epoch 2 (9 steps in all)
+GLOO_VALD_RANK0 = (3.0, 2.0, 2.5, 2.6, 2.7)
+GLOO_TRAIN_SEQS = 12
+CHILD_TIMEOUT_S = 300
+PRE_N, PRE_T = 4, 600            # motions and frames of the raw trees
+AMASS_FRAMES = 12000             # one 120 fps motion (100 s) for the timing
+PRE_ATOL = 1e-5                  # positions, rotations, keypoints (card/CPU)
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_module(name):
+    r"""``(params on the CPU, forward, host inputs)`` of one module at phase
+    10's shape (B=256, T=200, lengths 100-200, dropout 0)."""
+    import torch
+    from robustcap_tpu_torch.models.sig_mp import RNN_SPECS
+    from robustcap_tpu_torch.nn.rnn import init_rnn_params
+    from robustcap_tpu_torch.train import make_forward_fn
+    k = list(RNN_SPECS).index(name)
+    n_in, n_out, H, _, with_init = RNN_SPECS[name]
+    params = init_rnn_params(torch.Generator().manual_seed(k), n_in, n_out,
+                             H, 2, with_init)
+    return (params, make_forward_fn(0.0, with_init),
+            _train_inputs(name, TRAIN_B, TRAIN_T, TRAIN_LENGTHS,
+                          TRAIN_SEED + k))
+
+
+def _on(params, dev, dtype=None):
+    import torch
+    from robustcap_tpu_torch.device import tree_map
+    dtype = dtype or torch.float32
+    return tree_map(lambda t: t.detach().to(dev, dtype, copy=True)
+                    .requires_grad_(), params)
+
+
+def _inputs_as(inputs, dtype):
+    return tuple(x if x is None or x.dtype.kind == "i" else
+                 x.astype(dtype) for x in inputs)
+
+
+def _plain_step(forward, loss_fn, tree, opt, inputs, dev, clip=1.0):
+    r"""The single-device loop's step: the batch uploaded from the host,
+    forward, loss, backward, the clip, the optimizer."""
+    import torch
+    from robustcap_tpu_torch.train.loop import (_clip_by_global_norm,
+                                                _tensor_leaves, _upload)
+    xs, labels, lengths, init = inputs
+    leaves = _tensor_leaves(tree)
+    lengths_h = torch.from_numpy(lengths)
+
+    def step():
+        loss = loss_fn(forward(tree, _upload(xs, dev), lengths_h,
+                               _upload(init, dev), None),
+                       _upload(labels, dev), lengths_h)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if clip:
+            _clip_by_global_norm(leaves, clip)
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def _leaf_gap(a, b):
+    return max(float((x.detach() - y.detach()).abs().max())
+               for x, y in zip(a, b))
+
+
+def check_parallel_nccl(model, dev, card):
+    r"""Phase 11 (a): NCCL at one rank. ``train(mesh=)``'s DP step of rnn4
+    and rnn2 at full width against the plain step on the same batch, both
+    timed; the NCCL all-reduce's device time and the bytes it moves."""
+    import torch
+    import torch.distributed as dist
+    from robustcap_tpu_torch.parallel import (initialize_distributed,
+                                              make_dp_train_step, make_mesh)
+    from robustcap_tpu_torch.train.loop import _tensor_leaves
+    ctx = initialize_distributed(f"localhost:{_free_port()}", 1, 0,
+                                 device=dev)
+    _require(ctx.enabled and ctx.process_count == 1
+             and dist.get_backend() == "nccl",
+             f"NCCL at one rank did not come up: {ctx}")
+    mesh = make_mesh(dev)
+    rows = {}
+    try:
+        for name in DP_MODULES:
+            params, forward, inputs = _dp_module(name)
+            loss_fn = _train_loss(name, model)
+            xs, labels, lengths, init = inputs
+            tree_dp, tree_pl = _on(params, dev), _on(params, dev)
+            before = [t.detach().clone() for t in _tensor_leaves(tree_dp)]
+            dp = make_dp_train_step(
+                forward, loss_fn,
+                torch.optim.Adam(_tensor_leaves(tree_dp), lr=1e-3), mesh,
+                clip_grad_norm=1.0)
+
+            def dp_step(tree=tree_dp):
+                return dp(tree, xs, labels, lengths, init)
+            plain = _plain_step(forward, loss_fn, tree_pl, torch.optim.Adam(
+                _tensor_leaves(tree_pl), lr=1e-3), inputs, dev)
+            loss_dp, loss_pl = float(dp_step()), float(plain())
+            move = _leaf_gap(_tensor_leaves(tree_pl), before)
+            gap = _leaf_gap(_tensor_leaves(tree_dp), _tensor_leaves(tree_pl))
+            _require(loss_dp == loss_pl and gap <= DP_AGREE * move,
+                     f"DP step {name} at one rank: loss {loss_dp} against "
+                     f"{loss_pl}, parameters {gap:.3e} of a move {move:.3e}")
+            ms_dp, spread_dp, _, _ = _time_train_step(dp_step, name + " DP")
+            ms_pl, spread_pl, _, _ = _time_train_step(plain, name)
+            grads = torch.cat([t.grad.reshape(-1)
+                               for t in _tensor_leaves(tree_dp)])
+            # NCCL's in-place all-reduce at one rank may launch nothing:
+            # its device time from the profiler (None: no device event)
+            # and the call's time between CUDA events
+            prof = _profile_top(lambda: mesh.all_reduce_(grads), 10, k=3)
+            ar_call = _time_ms(lambda: mesh.all_reduce_(grads), 10)
+            step_prof = _profile_top(dp_step, 2, k=10 ** 4)
+            nccl_in_step = (None if step_prof is None else round(sum(
+                ms for n, ms, _ in step_prof[3] if "nccl" in n.lower()), 3))
+            ar_ms = None if prof is None else round(prof[1], 4)
+            rows[name] = dict(
+                ms_dp=round(ms_dp, 3), ms_dp_range=spread_dp,
+                ms_plain=round(ms_pl, 3), ms_plain_range=spread_pl,
+                grad_bytes=grads.numel() * 4, allreduce_ms=ar_ms,
+                allreduce_call_ms=round(ar_call, 4),
+                allreduce_top=None if prof is None else prof[3],
+                nccl_ms_in_step=nccl_in_step, loss=loss_dp,
+                param_gap_share=gap / move)
+            gb = grads.numel() * 4 / 1e9
+            ar = ("no device event" if ar_ms is None
+                  else f"{ar_ms} ms of device time") + \
+                f", {ar_call:.4f} ms a call between CUDA events (mean of 10)"
+            print(f"[parallel] (a) NCCL, one rank, {card}: {name} DP step "
+                  f"B={TRAIN_B} T={TRAIN_T} {ms_dp:.3f} ms (median of "
+                  f"{TRAIN_REPS}, CUDA events; range {spread_dp}) against "
+                  f"the plain step's {ms_pl:.3f} ms (range {spread_pl}); "
+                  f"loss equal ({loss_dp:.6f}), parameters {gap:.2e} of a "
+                  f"move of {move:.2e}; gradients {gb:.4f} GB a step; the "
+                  f"NCCL all-reduce alone (torch.profiler): {ar}; nccl "
+                  f"kernels in a profiled step {nccl_in_step} ms",
+                  flush=True)
+            del dp, plain, tree_dp, tree_pl, grads
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def _gloo_world(dev):
+    r"""What the two gloo ranks and the parent share: full-width params
+    (seed 0, as ``main``), the 6890-vertex body, three one-camera fixture
+    sequences of 64 frames, and the float64 body and prior."""
+    import torch
+    from robustcap_tpu_torch.eval import build_aist_sequences
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+    from robustcap_tpu_torch.smplify.prior import MaxMixturePrior
+    data = synthetic_smpl_data()
+    model = ParametricModel(data=data, device=dev)
+    params = sig_mp.init_params(torch.Generator().manual_seed(0), device=dev)
+    seqs = build_aist_sequences(build_fixture_dataset(
+        model, n_seq=3, T=64, n_cam=1, seed=GLOO_SEED))
+    model64 = ParametricModel(data=data, dtype=torch.float64, device=dev)
+    prior64 = MaxMixturePrior(None, device=dev, dtype=torch.float64)
+    return params, model, seqs, model64, prior64
+
+
+def _gloo_run(params, model, seqs, model64, prior64, dev, mesh=None):
+    r"""``run_sequences`` then the float64 refinement of its output (one
+    group of four lanes: three sequences and a padded one)."""
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.eval import run_sequences
+    from robustcap_tpu_torch.smplify import refine_sequences_batched
+    res = run_sequences(params, model, SigMPConfig(), seqs, device=dev,
+                        mesh=mesh)
+    refined = refine_sequences_batched(res, seqs, model=model64,
+                                       prior=prior64, group_size=4,
+                                       device=dev, mesh=mesh)
+    return res, refined
+
+
+def _gloo_train(mesh, save_dir):
+    r"""Full-width rnn2 through ``train(mesh=)`` on a small corpus: a run
+    ended by early stop, then its resume. Returns each run's parameters
+    (flat, host) and ``train_info``."""
+    import torch
+    from robustcap_tpu_torch.models.sig_mp import RNN_SPECS
+    from robustcap_tpu_torch.train import (SeqDataset, make_forward_fn,
+                                           masked_mse, train)
+    from robustcap_tpu_torch.train.loop import _tensor_leaves
+    params, _, _ = _dp_module(GLOO_MODULE)
+    n_in, n_out, _, dropout, _ = RNN_SPECS[GLOO_MODULE]
+    rng = np.random.RandomState(GLOO_SEED)
+    data = [rng.randn(int(n), n_in).astype(np.float32)
+            for n in rng.randint(40, 81, GLOO_TRAIN_SEQS)]
+    ds = SeqDataset(data, [d[:, :n_out] * 0.5 for d in data])
+    calls = []
+
+    def vald(ys, labels, lengths):
+        calls.append(None)
+        k = len(calls) - 1
+        return torch.tensor(GLOO_VALD_RANK0[k] if mesh.rank == 0
+                            else -float(k))
+
+    got = {}
+    for run, kw in (("first", dict(num_epoch=5, eval_fn=vald,
+                                   early_stop_threshold=2,
+                                   lr_scheduler_patience=0)),
+                    ("resumed", dict(num_epoch=3))):
+        out = train(params, make_forward_fn(dropout), masked_mse, ds, ds,
+                    save_dir, batch_size=4, learning_rate=1e-3,
+                    num_iter_between_vald=1, mesh=mesh, **kw)
+        got[f"train_{run}"] = torch.cat(
+            [t.detach().reshape(-1) for t in _tensor_leaves(out)]
+        ).cpu().numpy()
+        with open(os.path.join(save_dir, "train_info.json")) as f:
+            got[f"info_{run}"] = json.dumps(json.load(f), sort_keys=True)
+        mesh.barrier()          # both ranks have read before the resume
+    return got
+
+
+def gloo_child(port, rank, out, device):
+    r"""One of the two ranks of phase 11 (b), on ``device`` over gloo: the DP
+    step of rnn2 at full width on its rows (SGD, and Adam for the ranks'
+    agreement), timed with the all-reduce alone; ``run_sequences`` and the
+    float64 refinement sharded. Writes its results to ``out`` (npz)."""
+    import torch
+    from robustcap_tpu_torch.parallel import (initialize_distributed,
+                                              make_dp_train_step, make_mesh)
+    from robustcap_tpu_torch.train.loop import _tensor_leaves
+    from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    ctx = initialize_distributed(f"127.0.0.1:{port}", 2, rank, device=dev,
+                                 backend="gloo")
+    mesh = make_mesh(dev)
+    got = {"rank": ctx.process_index, "size": ctx.process_count}
+    body = ParametricModel(data=synthetic_smpl_data(), device=dev)
+    params, forward, inputs = _dp_module(GLOO_MODULE)
+    loss_fn = _train_loss(GLOO_MODULE, body)
+    for label, opt_cls, lr, dtype in (
+            ("sgd64", torch.optim.SGD, GLOO_SGD_LR, torch.float64),
+            ("sgd32", torch.optim.SGD, GLOO_SGD_LR, torch.float32),
+            ("adam32", torch.optim.Adam, 1e-3, torch.float32)):
+        tree = _on(params, dev, dtype)
+        leaves = _tensor_leaves(tree)
+        step = make_dp_train_step(forward, loss_fn, opt_cls(leaves, lr=lr),
+                                  mesh, clip_grad_norm=1.0)
+        host = _inputs_as(inputs, np.float64 if dtype == torch.float64
+                          else np.float32)
+        got[f"{label}_loss"] = float(step(tree, *host))
+        got[f"{label}_params"] = torch.cat(
+            [t.detach().reshape(-1) for t in leaves]).cpu().numpy()
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(tree, *inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    grads = torch.cat([t.grad.reshape(-1) for t in leaves])
+    ar = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_reduce_(grads)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    got["step_ms"] = float(np.median(times[1:]))
+    got["allreduce_ms"] = float(np.median(ar[1:]))
+    got["grad_bytes"] = grads.numel() * 4
+    del tree, leaves, step, grads
+    t0 = time.perf_counter()
+    got.update(_gloo_train(mesh, os.path.join(os.path.dirname(out),
+                                              "train")))
+    got["train_s"] = time.perf_counter() - t0
+    world = _gloo_world(dev)
+    res, refined = _gloo_run(*world, dev, mesh)
+    for i, ((p, t), (rp, rt)) in enumerate(zip(res, refined)):
+        got[f"pose{i}"], got[f"tran{i}"] = p, t
+        got[f"rpose{i}"], got[f"rtran{i}"] = rp, rt
+    np.savez(out, **got)
+    return 0
+
+
+def nccl_shared_card_child(port, rank):
+    r"""One of two ranks asking NCCL on the same card: the mesh's check
+    must refuse it with a clear error (exit 0 if it does)."""
+    import torch
+    from robustcap_tpu_torch.parallel import initialize_distributed
+    try:
+        initialize_distributed(f"127.0.0.1:{port}", 2, rank,
+                               device=torch.device("cuda", 0))
+    except RuntimeError as e:
+        if "one card per rank" in str(e):
+            print(f"refused: {e}", flush=True)
+            return 0
+        raise
+    print("NCCL put two ranks on one card", flush=True)
+    return 1
+
+
+def _spawn(args_list, timeout):
+    r"""Run the child commands together; each must end within ``timeout``
+    seconds (all are killed otherwise). Returns their (rc, stdout,
+    stderr)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "ROBUSTCAP_COORDINATOR"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               *map(str, a)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for a in args_list]
+    deadline = time.monotonic() + timeout
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            out.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def check_parallel_gloo(model, dev, card):
+    r"""Phase 11 (b): two ranks sharing the card over gloo (two spawned
+    processes, with a timeout), held against one process: the DP step of
+    rnn2 with unequal lengths, ``run_sequences(mesh=)`` and the float64
+    ``refine_sequences_batched(mesh=)``; two more processes that ask NCCL
+    for two ranks on the card must be refused."""
+    import tempfile
+
+    import torch
+    from robustcap_tpu_torch.train.loop import _tensor_leaves
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        import threading
+        results = {}
+        port, port2 = _free_port(), _free_port()
+        runner = threading.Thread(target=lambda: results.update(spawned=_spawn(
+            [["--gloo-child", port, r, os.path.join(d, f"r{r}.npz"), dev]
+             for r in range(2)]
+            + [["--nccl-shared-card-child", port2, r] for r in range(2)],
+            CHILD_TIMEOUT_S)))
+        runner.start()
+        # the one-process references, meanwhile
+        params, forward, inputs = _dp_module(GLOO_MODULE)
+        loss_fn = _train_loss(GLOO_MODULE, model)
+        ref = {}
+        for label, dtype in (("sgd64", torch.float64),
+                             ("sgd32", torch.float32)):
+            tree = _on(params, dev, dtype)
+            before = torch.cat([t.detach().reshape(-1)
+                                for t in _tensor_leaves(tree)])
+            step = _plain_step(forward, loss_fn, tree, torch.optim.SGD(
+                _tensor_leaves(tree), lr=GLOO_SGD_LR), _inputs_as(
+                    inputs, np.float64 if dtype == torch.float64
+                    else np.float32), dev)
+            loss = float(step())
+            after = torch.cat([t.detach().reshape(-1)
+                               for t in _tensor_leaves(tree)])
+            ref[label] = (loss, after.cpu().numpy(),
+                          float((after - before).abs().max()))
+        world = _gloo_world(dev)
+        res, refined = _gloo_run(*world, dev)
+        start = [(p.astype(np.float64), t.astype(np.float64))
+                 for p, t in res]
+        runner.join()
+        spawned = results["spawned"]
+        for rc, o, e in spawned:
+            _require(rc == 0, f"phase 11 (b) child failed ({rc}):\n"
+                     f"{o[-2000:]}\n{e[-4000:]}")
+        ranks = [dict(np.load(os.path.join(d, f"r{r}.npz")))
+                 for r in range(2)]
+        with open(os.path.join(d, "train", "metrics.jsonl")) as f:
+            train_its = [json.loads(line)["total_it"] for line in f]
+    out = {}
+    for got in ranks:
+        r = int(got["rank"])
+        gaps = {}
+        for label in ("sgd64", "sgd32"):
+            loss, after, move = ref[label]
+            gaps[label] = (abs(float(got[f"{label}_loss"]) - loss) / abs(loss),
+                           float(np.abs(got[f"{label}_params"] - after).max())
+                           / move)
+        loss_gap, p_gap = gaps["sgd64"]
+        _require(loss_gap <= GLOO_LOSS and p_gap <= GLOO_PARAMS,
+                 f"gloo rank {r}: DP step (float64) against one process: "
+                 f"loss {loss_gap:.2e}, parameters {p_gap:.2e} of the move")
+        _require(float(got["adam32_loss"]) == float(got["sgd32_loss"]),
+                 "gloo: the Adam and SGD steps' losses differ")
+        eval_gap = max(max(float(np.abs(got[f"pose{i}"] - p).max()),
+                           float(np.abs(got[f"tran{i}"] - t).max()))
+                       for i, (p, t) in enumerate(res))
+        _require(eval_gap <= GLOO_EVAL, f"gloo rank {r}: run_sequences "
+                 f"sharded against unsharded {eval_gap:.2e}")
+        shares = []
+        for i, ((rp, rt), (p0, t0_)) in enumerate(zip(refined, start)):
+            moved = max(float(np.abs(rp - p0).max()),
+                        float(np.abs(rt - t0_).max()))
+            gap = max(float(np.abs(got[f"rpose{i}"] - rp).max()),
+                      float(np.abs(got[f"rtran{i}"] - rt).max()))
+            _require(moved > 0 and gap <= GLOO_SHARE * moved,
+                     f"gloo rank {r}: refinement {i} sharded against "
+                     f"unsharded {gap:.2e} of a move {moved:.2e}")
+            shares.append(gap / moved)
+        out[r] = dict(loss_gap=loss_gap, param_share=p_gap,
+                      f32_gaps=gaps["sgd32"],
+                      eval_gap=eval_gap, refine_share=max(shares),
+                      step_ms=float(got["step_ms"]),
+                      allreduce_ms=float(got["allreduce_ms"]),
+                      grad_bytes=int(got["grad_bytes"]))
+    _require(np.array_equal(ranks[0]["adam32_params"],
+                            ranks[1]["adam32_params"]),
+             "gloo: the ranks' parameters differ after the Adam step")
+    for run in ("first", "resumed"):
+        _require(np.array_equal(ranks[0][f"train_{run}"],
+                                ranks[1][f"train_{run}"])
+                 and str(ranks[0][f"info_{run}"])
+                 == str(ranks[1][f"info_{run}"]),
+                 f"gloo: train(mesh=), {run} run: the ranks differ")
+    first = json.loads(str(ranks[0]["info_first"]))
+    _require((first["epoch"], first["it"], first["total_it"],
+              first["lr_scale"]) == (1, 1, 4, 0.1)
+             and train_its == list(range(1, 10))
+             and not np.array_equal(ranks[0]["train_first"],
+                                    ranks[0]["train_resumed"]),
+             f"gloo: train(mesh=) did not follow rank 0's validation: "
+             f"{first}, metrics lines {train_its}")
+    f32 = [[float(f"{g:.2e}") for g in v["f32_gaps"]] for v in out.values()]
+    print(f"[parallel] (b) gloo, two ranks sharing the card, {card}: "
+          f"{GLOO_MODULE} DP step B={TRAIN_B} T={TRAIN_T}, unequal lengths "
+          f"(rows 0-127: {int(inputs[2][:128].sum())}, 128-255: "
+          f"{int(inputs[2][128:].sum())} valid frames) against one process "
+          f"on the whole batch, float64: loss "
+          f"{max(v['loss_gap'] for v in out.values()):.2e} (bound "
+          f"{GLOO_LOSS}), parameters after SGD "
+          f"{max(v['param_share'] for v in out.values()):.2e} of the move "
+          f"(bound {GLOO_PARAMS}); float32 (not held): loss, parameters "
+          f"{f32}; "
+          f"Adam's parameters (float32) equal on both ranks; "
+          f"run_sequences sharded (3 sequences, padded to 4) "
+          f"{max(v['eval_gap'] for v in out.values()):.2e} from unsharded "
+          f"(bound {GLOO_EVAL}); float64 refinement sharded "
+          f"{max(v['refine_share'] for v in out.values()):.2e} of its move "
+          f"(bound {GLOO_SHARE}); train(mesh=) of full-width "
+          f"{GLOO_MODULE}: early stop and the plateau at rank 0's "
+          f"validation, resumed, 9 steps, one metrics line a validation, "
+          f"parameters equal on both ranks "
+          f"({[round(float(g['train_s']), 1) for g in ranks]} s); "
+          f"gloo's own times (through the host, no "
+          f"NCCL figure): a DP step "
+          f"{[round(v['step_ms'], 2) for v in out.values()]} ms, the "
+          f"all-reduce of {out[0]['grad_bytes'] / 1e6:.1f} MB "
+          f"{[round(v['allreduce_ms'], 2) for v in out.values()]} ms "
+          f"(host clock, median of 5); NCCL with two ranks on the card "
+          f"refused: {[o.strip()[9:80] for rc, o, _ in spawned[2:]]}; "
+          f"phase 11 (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _imu_vertices(model, R, tran, shape=None):
+    r"""The IMU vertices ``[T, 6, 3]`` of a posed motion as the drivers
+    skin them, on the model's device, as float64 numpy."""
+    import torch
+    from robustcap_tpu_torch.preprocess import datasets as D
+    dev = model.device
+    _, _, v = model.forward_kinematics(
+        torch.as_tensor(np.asarray(R, np.float32), device=dev),
+        tran=torch.as_tensor(np.asarray(tran, np.float32), device=dev),
+        shape=None if shape is None else torch.as_tensor(
+            np.asarray(shape, np.float32), device=dev),
+        calc_mesh=True, vertex_ids=D.NEED_VERTS)
+    return v[:, list(D._VI)].double().cpu().numpy()
+
+
+def _acc_bound(card_model, cpu_model, motions):
+    r"""``3600 (4 delta + 2 eps32 max|v|)``: an acceleration is a second
+    difference of positions times at most fps^2 = 3600, so a position gap
+    delta (measured: the card's IMU vertices against the CPU's on the same
+    motions) moves it by at most 4 delta 3600, and each device's float32
+    sum v[t-1] + v[t+1] rounds by at most eps32 max|v|. Returns (bound,
+    delta)."""
+    delta = vmax = 0.0
+    for R_card, R_cpu, tran, shape in motions:
+        a = _imu_vertices(card_model, R_card, tran, shape)
+        b = _imu_vertices(cpu_model, R_cpu, tran, shape)
+        delta = max(delta, float(np.abs(a - b).max()))
+        vmax = max(vmax, float(np.abs(a).max()))
+    return 3600.0 * (4 * delta + 2 * EPS32 * vmax), delta
+
+
+def _work_gaps(a, b, path="", gaps=None):
+    r"""The largest gap of each key of two work dicts (same structure,
+    shapes and dtypes required)."""
+    gaps = {} if gaps is None else gaps
+    if isinstance(a, dict):
+        _require(set(a) == set(b), f"work dict keys {path}")
+        for k in a:
+            _work_gaps(a[k], b[k], k, gaps)
+    elif isinstance(a, (list, tuple)):
+        _require(len(a) == len(b), f"work dict {path}: lengths")
+        for x, y in zip(a, b):
+            _work_gaps(x, y, path, gaps)
+    elif a is None or isinstance(a, str):
+        _require(a == b, f"work dict {path}: {a!r} against {b!r}")
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        _require(x.shape == y.shape and x.dtype == y.dtype,
+                 f"work dict {path}: {x.shape} {x.dtype} against {y.shape} "
+                 f"{y.dtype}")
+        gap = float(np.abs(x.astype(np.float64) - y).max()) if x.size else 0.
+        gaps[path] = max(gaps.get(path, 0.0), gap)
+    return gaps
+
+
+def _hold_work(what, card, cpu, bound):
+    gaps = _work_gaps(card, cpu)
+    for k, g in gaps.items():
+        limit = bound if k in ("imu_acc", "imu_accc", "acc") else PRE_ATOL
+        _require(g <= limit, f"preprocess {what}: {k} card against CPU "
+                 f"{g:.3e} (bound {limit:.3e})")
+    return max((g for k, g in gaps.items()
+                if k not in ("imu_acc", "imu_accc", "acc")), default=0.0)
+
+
+def _amass_tree(root, rng):
+    r"""``<corpus>/<subject>/*_poses.npz`` at 120 fps: three train motions
+    (ACCAD, CMU) and one val (HumanEva), each ``2 PRE_T`` frames."""
+    from robustcap_tpu_torch.preprocess import smooth_random_motion
+    for i, corpus in enumerate(("ACCAD", "ACCAD", "CMU", "HumanEva")):
+        d = os.path.join(root, corpus, f"s{i}")
+        os.makedirs(d, exist_ok=True)
+        aa, tran = smooth_random_motion(rng, 2 * PRE_T)
+        np.savez(os.path.join(d, f"m{i}_poses.npz"),
+                 poses=np.concatenate([aa.reshape(len(aa), 72),
+                                       np.zeros((len(aa), 84), np.float32)],
+                                      1), trans=tran, mocap_framerate=120.0)
+
+
+def check_preprocess(model, dev, card):
+    r"""Phase 11 (c): raw AIST++, TotalCapture, 3DPW(-OCC) and AMASS trees
+    (``PRE_N`` motions of ``PRE_T`` frames) written by the port's
+    fixtures, ``python -m robustcap_tpu_torch preprocess`` over every
+    ``--dataset`` choice on the card (in-process), the same drivers on the
+    CPU, the work dicts held card against CPU; then
+    ``amass_sequence_to_work`` timed on one 12,000-frame 120 fps motion on
+    the card and the CPU, with the card's synchronizing calls."""
+    import shutil
+    import tempfile
+
+    import torch
+    from robustcap_tpu_torch.__main__ import main as cli
+    from robustcap_tpu_torch.config import AmassSplits
+    from robustcap_tpu_torch.preprocess import (amass_sequence_to_work,
+                                                corpus, fixtures_raw,
+                                                preprocess_amass,
+                                                smooth_random_motion)
+    from robustcap_tpu_torch.preprocess.datasets import rotations
+    from robustcap_tpu_torch.smpl import ParametricModel, default_body_model
+
+    t_start = time.perf_counter()
+    cpu = torch.device("cpu")
+    body = default_body_model(dev)          # what the command poses with
+    body_cpu = ParametricModel(data=body.data, device=cpu)
+
+    def rot(aa, m):
+        return rotations(aa, m.device).cpu().numpy().reshape(-1, 24, 3, 3)
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+    root = tempfile.mkdtemp()
+    try:
+        raw = {k: os.path.join(root, "raw", k)
+               for k in ("aist", "tc", "pw3d", "pw3d_occ", "amass")}
+        work = os.path.join(root, "work")
+        t0 = time.perf_counter()
+        fixtures_raw.build_raw_aist(raw["aist"], body, n_seq=PRE_N, T=PRE_T,
+                                    misaligned_cam=3)
+        fixtures_raw.build_raw_totalcapture(raw["tc"], body, n_seq=PRE_N,
+                                            T=PRE_T)
+        fixtures_raw.build_raw_pw3d(raw["pw3d"], body, n_seq=PRE_N,
+                                    T60=PRE_T)
+        fixtures_raw.build_raw_pw3d(raw["pw3d_occ"], body, n_seq=PRE_N,
+                                    T60=PRE_T, occ=True)
+        _amass_tree(raw["amass"], np.random.RandomState(15))
+        t_build = time.perf_counter() - t0
+
+        secs, printed = {}, {}
+        tc_pre = os.path.join(raw["tc"], "total_capture_data.pt")
+        for dataset, src, out in (
+                ("aist", "aist", "aist"), ("aist_pre", "aist", "na.txt"),
+                ("tc_pre", "tc", None), ("totalcapture_pre", "tc", None),
+                ("tc", "tc", "tc"), ("totalcapture", "tc", "tc2"),
+                ("pw3d", "pw3d", "pw3d"), ("pw3d_occ", "pw3d_occ", "pwocc"),
+                ("amass", "amass", "amass")):
+            args = ["preprocess", "--dataset", dataset, "--raw", raw[src],
+                    "--device", str(dev)]
+            if out is not None:
+                args += ["--out", os.path.join(work, "card", out)]
+            t0 = time.perf_counter()
+            cli(args)
+            torch.cuda.synchronize()
+            secs[dataset] = round(time.perf_counter() - t0, 2)
+            if dataset == "totalcapture_pre":
+                shutil.copy(tc_pre, os.path.join(work, "tc_pre_card.pt"))
+
+        # the same drivers on the CPU
+        t0 = time.perf_counter()
+        kw = dict(model=body_cpu, device=cpu)
+        counts = corpus.preprocess_aist(raw["aist"],
+                                        os.path.join(work, "cpu", "aist"),
+                                        **kw)
+        flagged = corpus.write_not_aligned(
+            raw["aist"], out_path=os.path.join(work, "na_cpu.txt"), **kw)
+        corpus.preprocess_totalcapture_pre(raw["tc"], **kw)
+        n_tc = corpus.preprocess_totalcapture(
+            raw["tc"], os.path.join(work, "cpu", "tc"), **kw)
+        for occ, name in ((False, "pw3d"), (True, "pwocc")):
+            corpus.preprocess_3dpw(raw["pw3d_occ" if occ else "pw3d"],
+                                   os.path.join(work, "cpu", name), occ=occ,
+                                   **kw)
+        preprocess_amass(body_cpu, raw["amass"],
+                         os.path.join(work, "cpu", "amass"),
+                         {"train": AmassSplits.train,
+                          "val": AmassSplits.val}, device=cpu)
+        t_cpu = time.perf_counter() - t0
+
+        def card_cpu(rel):
+            return (load(os.path.join(work, "card", rel)),
+                    load(os.path.join(work, "cpu", rel)))
+
+        held = {}
+        a, b = card_cpu("aist/test.pt")
+        _require(counts == {"test": PRE_N} and len(a["name"]) == PRE_N,
+                 f"aist: {counts}")
+        bound, delta = _acc_bound(body, body_cpu, [
+            (rot(p, body), rot(p, body_cpu), t, None)
+            for p, t in zip(a["pose"], a["tran"])])
+        held["aist"] = (_hold_work("aist", a, b, bound), bound, delta)
+        with open(os.path.join(work, "card", "na.txt")) as f:
+            na_card = f.read().split()
+        _require(na_card == flagged and any("c04" in n for n in flagged),
+                 f"aist_pre: {na_card} against {flagged}")
+        _require(_hold_work("tc_pre", load(os.path.join(
+            work, "tc_pre_card.pt")), load(tc_pre), 0.0) <= PRE_ATOL,
+            "tc_pre")
+        for rel in ("tc", "tc2"):
+            a, b = (load(os.path.join(work, "card", rel, "test.pt")),
+                    load(os.path.join(work, "cpu", "tc", "test.pt")))
+            # the default skip list drops motions 2, 12 and 42
+            _require(len(a["name"]) == n_tc == sum(
+                i not in (2, 12, 42) for i in range(PRE_N)),
+                     f"tc: {len(a['name'])} sequences, CPU {n_tc}")
+            held["tc"] = (_hold_work("tc", a, b, 0.0), 0.0, 0.0)
+        for name, fname in (("pw3d", "test.pt"), ("pwocc", "test_occ.pt")):
+            a, b = card_cpu(f"{name}/{fname}")
+            bound, delta = _acc_bound(body, body_cpu, [
+                (pa, pb, t, s) for pa, pb, t, s in
+                zip(a["posec"], b["posec"], a["tranc"], a["shape"])])
+            held[name] = (_hold_work(name, a, b, bound), bound, delta)
+        for kind in ("train", "val"):
+            a, b = card_cpu(f"amass/{kind}.pt")
+            _require(len(a["pose"]) == (3 if kind == "train" else 1),
+                     f"amass {kind}: {len(a['pose'])} motions")
+            bound, delta = _acc_bound(body, body_cpu, [
+                (rot(p, body), rot(p, body_cpu), t, None)
+                for p, t in zip(a["pose"], a["tran"])])
+            held[f"amass {kind}"] = (_hold_work("amass", a, b, bound), bound,
+                                     delta)
+
+        # amass_sequence_to_work on one long motion: card, CPU, syncs
+        aa, tran = smooth_random_motion(np.random.RandomState(16),
+                                        AMASS_FRAMES)
+        aa = aa.reshape(AMASS_FRAMES, 72)
+        amass_sequence_to_work(body, aa[:240], tran[:240], 120.0,
+                               device=dev)
+        timed = {}
+        for what, m, d in (("card", body, dev), ("CPU", body_cpu, cpu)):
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                entry = amass_sequence_to_work(m, aa, tran, 120.0, device=d)
+                runs.append(time.perf_counter() - t0)
+            timed[what] = float(np.median(runs))
+        n_out = len(entry["pose"])
+        syncs = _count_syncs(lambda: amass_sequence_to_work(
+            body, aa, tran, 120.0, device=dev))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fps = {k: n_out / v for k, v in timed.items()}
+    print(f"[preprocess] (c) {card}: raw trees ({PRE_N} motions x {PRE_T} "
+          f"frames each of AIST++ (9 cameras), TotalCapture (8), 3DPW, "
+          f"3DPW-OCC; AMASS {PRE_N} x {2 * PRE_T} frames at 120 fps) built "
+          f"in {t_build:.1f} s; the preprocess command on the card per "
+          f"--dataset {secs} s; the CPU's drivers {t_cpu:.1f} s; card "
+          f"against CPU (positions, rotations, keypoints within "
+          f"{PRE_ATOL}; accelerations within 3600 (4 delta + 2 eps32 "
+          f"max|v|)): " + ", ".join(
+              f"{k} {g:.2e} (acc bound {bnd:.2e}, delta {dl:.2e})"
+              for k, (g, bnd, dl) in held.items())
+          + f"; not_aligned {flagged}", flush=True)
+    print(f"[preprocess] amass_sequence_to_work, {AMASS_FRAMES} frames at "
+          f"120 fps -> {n_out} at 60 fps, {card}: card "
+          f"{timed['card'] * 1e3:.2f} ms ({fps['card']:.0f} frames/s), CPU "
+          f"{timed['CPU'] * 1e3:.2f} ms ({fps['CPU']:.0f} frames/s), "
+          f"median of 3 (host clock, synchronized); "
+          f"{sum(syncs.values())} synchronizing calls on the card "
+          f"{dict(syncs)}; phase 11 (c) in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(secs=secs, held=held, fps=fps, syncs=sum(syncs.values()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2551,6 +3319,11 @@ def main():
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--gloo-child"]:
+        return gloo_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5])
+    if sys.argv[1:2] == ["--nccl-shared-card-child"]:
+        return nccl_shared_card_child(int(sys.argv[2]), int(sys.argv[3]))
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.ops import _build
     from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
@@ -2596,6 +3369,13 @@ def main():
     for key, n in check_training_e2e(model, dev).items():
         launches[key] += n
     print(f"[train] phase 10 in {time.perf_counter() - t10:.1f} s",
+          flush=True)
+    t11 = time.perf_counter()
+    card = smi.stdout.strip()
+    check_parallel_nccl(model, dev, card)
+    check_parallel_gloo(model, dev, card)
+    check_preprocess(model, dev, card)
+    print(f"[parallel] phase 11 in {time.perf_counter() - t11:.1f} s",
           flush=True)
 
     kernels = [

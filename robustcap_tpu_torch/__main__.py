@@ -13,6 +13,9 @@ and the serving workflows.
         [--trace-dir DIR] [--int8-compute] [--device cuda]
     python -m robustcap_tpu_torch live-server [--weights W | --bundle DIR]
         [--device cuda]
+    python -m robustcap_tpu_torch preprocess --dataset aist|aist_pre|tc_pre|
+        tc|pw3d|pw3d_occ|amass --raw DIR [--out DIR] [--kinds test]
+        [--device cuda]
 
 The flags are the JAX package's (``python -m robustcap_tpu``), with
 ``--device`` in place of ``--platforms``. ``--weights`` reads the
@@ -25,7 +28,13 @@ from each directory, trains the chosen modules into
 ``config.paths.weight_dir/sig_mp`` (``all`` trains the six and merges them
 into ``best_weights.pkl``). ``quantize`` writes the int8 tree as a pickle,
 or with ``--torch-save`` as a ``torch.save`` checkpoint
-(``train.save_checkpoint``).
+(``train.save_checkpoint``). ``preprocess`` turns a raw corpus tree into
+the work ``.pt`` dicts (``preprocess/corpus.py``; ``amass`` walks the
+``config.AmassSplits`` corpora into ``train.pt`` and ``val.pt``).
+
+Under ``torchrun`` (or with ``ROBUSTCAP_COORDINATOR`` and its companions
+set) the command first joins the job (``parallel.initialize_distributed``),
+and ``train`` and ``eval`` then split their batches over its ranks.
 """
 
 from __future__ import annotations
@@ -61,7 +70,8 @@ def cmd_eval(args):
                                           evaluate_pw3d_ours,
                                           evaluate_tc_ours)
     kw = dict(run_smplify=not args.no_smplify, params=_load_params(args),
-              use_cache=not args.no_cache, device=args.device)
+              use_cache=not args.no_cache, device=args.device,
+              mesh=args.mesh)
     if args.dataset == "aist":
         out = evaluate_aist_ours(**kw)
     elif args.dataset in ("tc", "totalcapture"):
@@ -86,6 +96,8 @@ def cmd_train(args):
     aist_tr, aist_va = pair(args.aist)
     amass_tr, amass_va = pair(args.amass)
     kw = {"device": args.device}
+    if args.mesh is not None:
+        kw.update(device=args.mesh.device, mesh=args.mesh)
     if args.rnn == "all":
         trainers.train_all(aist_tr, aist_va, amass_tr, amass_va, **kw)
     elif args.rnn == "8":
@@ -93,6 +105,38 @@ def cmd_train(args):
     else:
         getattr(trainers, f"train_rnn{args.rnn}")(aist_tr, aist_va, amass_tr,
                                                    amass_va, **kw)
+
+
+def cmd_preprocess(args):
+    r"""A raw corpus tree into work dicts (``preprocess/corpus.py``); prints
+    what was written."""
+    from robustcap_tpu_torch.preprocess import corpus
+    dev = args.device
+    if args.dataset == "aist":
+        out = corpus.preprocess_aist(args.raw, args.out,
+                                     kinds=args.kinds.split(","), device=dev)
+    elif args.dataset == "aist_pre":
+        out = {"not_aligned": corpus.write_not_aligned(
+            args.raw, out_path=args.out or None, device=dev)}
+    elif args.dataset in ("tc_pre", "totalcapture_pre"):
+        out = {"out": corpus.preprocess_totalcapture_pre(args.raw,
+                                                         device=dev)}
+    elif args.dataset in ("tc", "totalcapture"):
+        out = {"sequences": corpus.preprocess_totalcapture(
+            args.raw, args.out, device=dev)}
+    elif args.dataset in ("pw3d", "pw3d_occ"):
+        out = {"person_sequences": corpus.preprocess_3dpw(
+            args.raw, args.out, occ=args.dataset.endswith("occ"),
+            device=dev)}
+    else:
+        from robustcap_tpu_torch.config import AmassSplits
+        from robustcap_tpu_torch.preprocess import preprocess_amass
+        from robustcap_tpu_torch.smpl import default_body_model
+        done = preprocess_amass(
+            default_body_model(dev), args.raw, args.out,
+            {"train": AmassSplits.train, "val": AmassSplits.val}, device=dev)
+        out = {kind: len(agg["pose"]) for kind, agg in done.items()}
+    print(json.dumps(out))
 
 
 def cmd_quantize(args):
@@ -228,7 +272,26 @@ def main(argv=None):
     device_flag(pq)
     pq.set_defaults(fn=cmd_quantize)
 
+    pp = sub.add_parser("preprocess", help="raw corpus -> work .pt dicts")
+    pp.add_argument("--dataset", required=True,
+                    choices=["aist", "aist_pre", "tc_pre", "totalcapture_pre",
+                             "tc", "totalcapture", "pw3d", "pw3d_occ",
+                             "amass"])
+    pp.add_argument("--raw", required=True, help="raw corpus root")
+    pp.add_argument("--out", default="", help="output work dir / file")
+    pp.add_argument("--kinds", default="test",
+                    help="comma-separated splits (aist)")
+    device_flag(pp)
+    pp.set_defaults(fn=cmd_preprocess)
+
     args = p.parse_args(argv)
+    # a no-op unless a coordinator is configured (torchrun's variables or
+    # ROBUSTCAP_COORDINATOR and its companions)
+    from robustcap_tpu_torch.parallel import (initialize_distributed,
+                                              make_global_mesh)
+    args.mesh = None
+    if initialize_distributed(device=args.device).enabled:
+        args.mesh = make_global_mesh(device=args.device)
     args.fn(args)
 
 

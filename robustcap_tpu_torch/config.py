@@ -12,7 +12,7 @@ import os
 from typing import Tuple
 
 __all__ = [
-    "Paths", "paths", "SigMPConfig", "EVAL_PROFILES", "LiveConfig",
+    "Paths", "paths", "AmassSplits", "SigMPConfig", "EVAL_PROFILES", "LiveConfig",
     "PW3D_OCCLUDED_SEQUENCES", "VEL_SCALE", "TRAN_OFFSET", "MP_VERTEX_MASK",
     "IMU_VERTEX_MASK", "IMU_JOINT_MASK", "SMPL_PARENT",
 ]
@@ -73,6 +73,16 @@ class Paths:
 
 
 paths = Paths()
+
+
+class AmassSplits:
+    r"""The AMASS sub-corpora of each split (the reference's)."""
+    train = ["ACCAD", "BioMotionLab_NTroje", "BMLhandball", "BMLmovi", "CMU",
+             "DanceDB", "DFaust67", "EKUT", "Eyes_Japan_Dataset", "GRAB",
+             "HUMAN4D", "KIT", "MPI_Limits", "TCD_handMocap", "TotalCapture"]
+    val = ["HumanEva", "MPI_HDM05", "MPI_mosh", "SFU", "SOMA", "WEIZMANN",
+           "Transitions_mocap", "SSM_synced"]
+    test = []
 
 # Root-velocity scale used when training/integrating rnn3
 VEL_SCALE = 3

@@ -111,21 +111,22 @@ def _save_cache(path, cache_format, seqs, pose_p, tran_p):
                    path)
 
 
-def _maybe_smplify(results, seqs, run_smplify: bool, model, device):
+def _maybe_smplify(results, seqs, run_smplify: bool, model, device,
+                   mesh=None):
     r"""The reference's refinement of each sequence (lr 0.001, L-BFGS, one
     step, the gate at 20000), with same-length sequences refined together
-    as the lanes of one optimization."""
+    as the lanes of one optimization (split over ``mesh``'s ranks)."""
     if not run_smplify:
         return results
     return refine_sequences_batched(results, seqs, lr=0.001, opt_steps=1,
-                                    model=model, device=device)
+                                    model=model, device=device, mesh=mesh)
 
 
 def evaluate_sequences(seqs, params=None, model=None, cfg=SigMPConfig(),
                        first_tran_mode="gt", run_smplify=False,
                        cache_path=None, pad_to_multiple=128, max_bucket=32,
                        extended_metrics=False, cache_format="result4",
-                       device="cuda"):
+                       device="cuda", mesh=None):
     r"""The shared pipeline: run the net (or load ``cache_path``), score.
 
     Returns the per-sequence arrays (``pose_p``, ``tran_p``, ``pose_t``,
@@ -136,8 +137,10 @@ def evaluate_sequences(seqs, params=None, model=None, cfg=SigMPConfig(),
     ``[11, 2]``. A cache in either layout is read; a new one is written
     in ``cache_format`` (``"result4"`` or ``"result2"``), after the SMPLify
     refinement where ``run_smplify`` asks for it. Params and model must
-    already be on ``device``."""
-    dev = resolve_device(device)
+    already be on ``device``. With ``mesh`` the network and the refinement
+    split their rows over the ranks (``device`` is the mesh's), every rank
+    scores every sequence, and rank 0 writes the cache."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model = model or _default_model(dev)
     if cache_path is not None and os.path.exists(cache_path):
         pose_p, tran_p = _load_cache(cache_path)
@@ -147,12 +150,16 @@ def evaluate_sequences(seqs, params=None, model=None, cfg=SigMPConfig(),
                              "result")
         results = run_sequences(params, model, cfg, seqs, first_tran_mode,
                                 max_bucket=max_bucket,
-                                pad_to_multiple=pad_to_multiple, device=dev)
-        results = _maybe_smplify(results, seqs, run_smplify, model, dev)
+                                pad_to_multiple=pad_to_multiple, device=dev,
+                                mesh=mesh)
+        results = _maybe_smplify(results, seqs, run_smplify, model, dev,
+                                 mesh)
         pose_p = [r[0] for r in results]
         tran_p = [r[1] for r in results]
-        if cache_path is not None:
+        if cache_path is not None and (mesh is None or mesh.rank == 0):
             _save_cache(cache_path, cache_format, seqs, pose_p, tran_p)
+        if mesh is not None:
+            mesh.barrier()
     pose_t = [s.pose_gt for s in seqs]
     tran_t = [s.tran_gt for s in seqs]
     jreg = _j_regressor(model)
@@ -188,7 +195,8 @@ def _report(out, tran=True):
 
 
 def evaluate_aist_ours(run_smplify: bool = True, params=None, model=None,
-                       dataset=None, use_cache: bool = True, device="cuda"):
+                       dataset=None, use_cache: bool = True, device="cuda",
+                       mesh=None):
     r"""AIST++: 9 cameras, ground-truth first translation, the
     ``not_aligned.txt`` views skipped; MPJPE/PVE/PA-MPJPE and the absolute
     root position error."""
@@ -204,13 +212,14 @@ def evaluate_aist_ours(run_smplify: bool = True, params=None, model=None,
              else None)
     out = evaluate_sequences(seqs, params, model, SigMPConfig(),
                              first_tran_mode="gt", run_smplify=run_smplify,
-                             cache_path=cache, device=device)
+                             cache_path=cache, device=device, mesh=mesh)
     _report(out)
     return out
 
 
 def evaluate_tc_ours(run_smplify: bool = True, params=None, model=None,
-                     dataset=None, use_cache: bool = True, device="cuda"):
+                     dataset=None, use_cache: bool = True, device="cuda",
+                     mesh=None):
     r"""TotalCapture: real IMUs, 8 cameras, first-frame seeding; the root
     position error after aligning the last frames."""
     if dataset is None:
@@ -222,7 +231,7 @@ def evaluate_tc_ours(run_smplify: bool = True, params=None, model=None,
     out = evaluate_sequences(seqs, params, model, SigMPConfig(),
                              first_tran_mode="first_frame",
                              run_smplify=run_smplify, cache_path=cache,
-                             device=device)
+                             device=device, mesh=mesh)
     tran_eval = PositionErrorEvaluator()
     errs = []
     for p, t in zip(out["tran_p"], out["tran_t"]):
@@ -234,7 +243,7 @@ def evaluate_tc_ours(run_smplify: bool = True, params=None, model=None,
 
 def evaluate_pw3d_ours(run_smplify: bool = True, occ: bool = False,
                        params=None, model=None, dataset=None,
-                       use_cache: bool = True, device="cuda"):
+                       use_cache: bool = True, device="cuda", mesh=None):
     r"""3DPW / 3DPW-OCC: camera-frame data, the flat floor off, per-frame
     gravity."""
     if dataset is None:
@@ -248,6 +257,6 @@ def evaluate_pw3d_ours(run_smplify: bool = True, occ: bool = False,
                              SigMPConfig(use_flat_floor=False),
                              first_tran_mode="gt", run_smplify=run_smplify,
                              cache_path=cache, cache_format="result2",
-                             device=device)
+                             device=device, mesh=mesh)
     _report(out, tran=False)
     return out

@@ -1,7 +1,8 @@
 r"""The batched offline runner (port of ``robustcap_tpu/eval/runner.py``):
 sequences grouped into buckets of one padded length, each bucket one
 ``forward_offline_batched`` run of B rows, outputs cut back to each
-sequence's length."""
+sequence's length; with a data mesh each rank runs its rows of every
+bucket."""
 
 from __future__ import annotations
 
@@ -54,25 +55,36 @@ def stack_frames(seqs: List[EvalSequence], pad_len: int,
 def run_sequences(params, body_model, cfg: SigMPConfig,
                   seqs: List[EvalSequence], first_tran_mode: str = "gt",
                   max_bucket: int = 32, pad_to_multiple: int = 128,
-                  device="cuda") -> List[Tuple[np.ndarray, np.ndarray]]:
+                  device="cuda", mesh=None
+                  ) -> List[Tuple[np.ndarray, np.ndarray]]:
     r"""The fusion net over every sequence, bucket by bucket; returns each
     sequence's ``(pose [T, 24, 3, 3], tran [T, 3])`` as numpy arrays, cut
     to its length, in input order. Params and body model must already be
     on ``device``. A bucket runs up to its longest sequence, and every
     bucket is queued on the device before the first result is read
-    back."""
-    dev = resolve_device(device)
+    back.
+
+    With ``mesh`` (``parallel.make_mesh``; ``device`` is then the mesh's)
+    a bucket is padded by repeating its last sequence until the ranks
+    divide it, each rank runs its rows, and every rank gathers and returns
+    the whole list."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     params = prepare_scan_params(params, cfg.int8_compute)
     pending = []
     for indices, pad_len in bucket_sequences(seqs, max_bucket,
                                              pad_to_multiple):
         batch = [seqs[i] for i in indices]
+        if mesh is not None:
+            batch += [batch[-1]] * (-len(batch) % mesh.size)
+            batch = batch[mesh.rows(len(batch))]
         frames = stack_frames(batch, pad_len, first_tran_mode)
         pending.append((indices, sig_mp.forward_offline_batched(
             params, body_model, cfg, frames,
             lengths=[s.length for s in batch], device=dev)))
     results: List = [None] * len(seqs)
     for indices, (pose, tran) in pending:
+        if mesh is not None:
+            pose, tran = mesh.gather(pose), mesh.gather(tran)
         pose, tran = pose.cpu().numpy(), tran.cpu().numpy()
         for k, i in enumerate(indices):
             T = seqs[i].length

@@ -286,7 +286,8 @@ def refine_sequences_batched(results, seqs, lr: float = 0.001,
                              model=None, prior=None,
                              pad_to_multiple: int = 128,
                              loss_threshold: float = 20000.0,
-                             group_size: int = 16, device="cuda"):
+                             group_size: int = 16, device="cuda",
+                             mesh=None):
     r"""Refine many sequences, ``group_size`` lanes at a time.
 
     Sequences are grouped by their length padded to ``pad_to_multiple``; a
@@ -294,10 +295,22 @@ def refine_sequences_batched(results, seqs, lr: float = 0.001,
     with mask 0 and finish at once. A sequence whose frame-0 reprojection
     loss exceeds ``loss_threshold`` keeps the network's output. Returns
     ``[(pose [T, 24, 3, 3], tran [T, 3])]`` as numpy arrays, in input
-    order. The model and prior must be on ``device``."""
-    dev = resolve_device(device)
+    order. The model and prior must be on ``device``; the fit runs in the
+    model's dtype.
+
+    With ``mesh`` (``parallel.make_mesh``; ``device`` is then the mesh's)
+    each rank fits its share of every group's lanes, so the ranks must
+    divide ``group_size``, and every rank gathers and returns the whole
+    list. Lanes are independent, so the split changes no lane's problem;
+    a float32 fit at a small ``lr`` may still move with the lane count,
+    through the order of the products' sums."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and group_size % mesh.size:
+        raise ValueError(f"group_size {group_size} must divide over the "
+                         f"mesh's {mesh.size} ranks")
     model = model or default_body_model(dev)
     prior = prior or _default_prior(device=dev)
+    dtype = model._v_template.dtype
     fit = make_smplify_fit(model, prior, use_head=use_head, max_iter=20,
                            lr=lr, num_iters=opt_steps)
 
@@ -309,7 +322,7 @@ def refine_sequences_batched(results, seqs, lr: float = 0.001,
     def stack(arrays, L=0):
         return torch.as_tensor(np.stack([_pad_to(np.asarray(a, np.float32),
                                                  L) for a in arrays]),
-                               device=dev)
+                               dtype=dtype, device=dev)
 
     out = [None] * len(seqs)
     for L, idxs in lengths.items():
@@ -320,13 +333,19 @@ def refine_sequences_batched(results, seqs, lr: float = 0.001,
             mask = np.stack([(np.arange(L) < seqs[i].length)
                              .astype(np.float32) for i in lanes])
             mask[n_real:] = 0.0
+            if mesh is not None:
+                rows = mesh.rows(group_size)
+                lanes, mask = lanes[rows], mask[rows]
             pose_R, tr, before, _ = fit(
                 stack([results[i][0] for i in lanes], L),
                 stack([results[i][1] for i in lanes], L),
                 stack([seqs[i].j2dc_px for i in lanes], L),
                 stack([seqs[i].oric for i in lanes], L),
                 stack([seqs[i].cam_K for i in lanes]),
-                torch.as_tensor(mask, device=dev))
+                torch.as_tensor(mask, dtype=dtype, device=dev))
+            if mesh is not None:
+                pose_R, tr = mesh.gather(pose_R), mesh.gather(tr)
+                before = mesh.gather(before)
             pose_R, tr = pose_R.cpu().numpy(), tr.cpu().numpy()
             before = before.cpu().numpy()
             for k, i in enumerate(group):

@@ -22,10 +22,10 @@ import torch
 
 from ..config import VEL_SCALE
 from ..eval.datasets import _aa_to_R, _to_np
-from ..math.angular import (generate_random_rotation_matrix_constrained,
-                            rotation_matrix_to_r6d)
+from ..math.angular import rotation_matrix_to_r6d
 from ..math.general import lerp
 from ..models.sig_mp import get_bbox_scale
+from ..preprocess.synthesis import random_camera, synthesize_confidence
 
 __all__ = [
     "aist_root_frame", "amass_root_frame", "rnn2_features", "rnn3_features",
@@ -277,15 +277,13 @@ def amass_camera_augment(generator: torch.Generator, data: torch.Tensor,
     mpw = data[:, 72:].reshape(T, 33, 3)
     j3dw = label.reshape(T, 24, 3)
 
-    Rwc0 = torch.tensor([[-1.0, 0, 0], [0, -1.0, 0], [0, 0, 1.0]],
-                        device=dev)
     if "Rc0c" in draws:
-        Rc0c = torch.tensor(np.array(draws["Rc0c"]), dtype=torch.float32,
+        Rwc0 = torch.tensor([[-1.0, 0, 0], [0, -1.0, 0], [0, 0, 1.0]],
                             device=dev)
+        Rcw = (Rwc0 @ torch.tensor(np.array(draws["Rc0c"]),
+                                   dtype=torch.float32, device=dev)).T
     else:
-        Rc0c = generate_random_rotation_matrix_constrained(
-            generator, n=1, y=yaw, p=(-30.0, 30.0), r=(-5.0, 5.0))[0]
-    Rcw = (Rwc0 @ Rc0c).T
+        Rcw = random_camera(generator, yaw=yaw)
 
     accc = torch.einsum("ij,tnj->tni", Rcw, accw)
     oric = torch.einsum("ij,tnjk->tnik", Rcw, oriw)
@@ -301,14 +299,7 @@ def amass_camera_augment(generator: torch.Generator, data: torch.Tensor,
     j3dc = j3dc + tr
     mpc = mpc + tr
 
-    j2dc = mpc / mpc[..., 2:]
-    N = conf_pool.shape[0]
-    idx = (torch.randperm(N, generator=generator, device=dev)[:T] if N >= T
-           else torch.randint(N, (T,), generator=generator, device=dev))
-    p = conf_pool[idx].reshape(T, -1)[..., None].expand(T, 33, 1)
-    noise = torch.randn(j2dc[..., :2].shape, generator=generator,
-                        device=dev) * (0.003 * (1 - p))
-    j2dc = torch.cat([j2dc[..., :2] + noise, p], -1)
+    j2dc = synthesize_confidence(generator, mpc / mpc[..., 2:], conf_pool)
 
     j3dc_rel = (j3dc[:, 1:] - j3dc[:, :1]).reshape(T, -1)
     if target == "rnn4":

@@ -12,6 +12,11 @@ tree as numpy arrays, the JAX package's format, so each package reads the
 other's; the optimizer state is the port's own (``optimizer_states.pt``).
 A step reads nothing back from the device: its loss is summed there and
 read at each validation.
+
+With a ``mesh`` (``parallel.make_mesh``) training is data parallel: each
+rank runs its rows of every batch (``parallel.make_dp_train_step``), the
+gradients are summed across ranks before the clip, validation decides on
+rank 0's value, and only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from ..convert import params_from_numpy
 from ..device import resolve_device, tree_map
+from ..parallel.mesh import Mesh, make_dp_train_step, replicate
 from .data import SeqDataset, padded_batches
 
 __all__ = ["train", "save_pytree", "load_pytree", "batch_inference",
@@ -149,32 +155,45 @@ def train(params, forward_fn: Callable, loss_fn: Callable,
           lr_scheduler_patience: Optional[int] = None,
           lr_scheduler_factor: float = 0.1, seed: int = 0,
           log_metrics: bool = True,
-          epoch_hook: Optional[Callable] = None, device="cuda"):
+          epoch_hook: Optional[Callable] = None, device="cuda", mesh=None):
     r"""Train one RNN module on ``device``; returns the best parameters.
 
     ``forward_fn(params, xs, lengths, init, generator) -> ys`` (``generator``
     None at validation, where dropout is off) and ``loss_fn(ys, labels,
-    lengths) -> scalar`` keep the loop generic over the per-RNN features and
-    losses; ``xs``, ``labels`` and ``init`` arrive on ``device``,
-    ``lengths`` on the host. Checkpoints in ``save_dir``: ``weights.pkl``,
+    lengths, count_lengths=None) -> scalar`` keep the loop generic over the
+    per-RNN features and losses; ``xs``, ``labels`` and ``init`` arrive on
+    ``device``, ``lengths`` on the host. A step passes ``count_lengths``,
+    the lengths its denominators count (every loss of ``train.losses``
+    takes it); validation calls ``eval_fn`` (default ``loss_fn``) without
+    it. Checkpoints in ``save_dir``: ``weights.pkl``,
     ``best_weights.pkl``, ``optimizer_states.pt``, ``train_info.json`` and
     ``metrics.jsonl``. Batches and augmentation draw from
     ``np.random.RandomState(seed)`` (the JAX package's batches); dropout
     from generators seeded from ``seed``, the device's default one (which
     ``nn.LSTM`` uses) forked so the caller's state is left as it was.
+
+    ``mesh`` makes the step data parallel over its ranks on its device
+    (``device`` is then unused): every rank draws the same global batches,
+    runs its rows with the global batch's valid-frame counts, batches are
+    whole (``drop_last``, and ``batch_size`` must divide the ranks), the
+    parameters start from rank 0's, and dropout draws from generators
+    seeded by ``(seed, rank)``. Validation runs on every rank
+    and decides on rank 0's loss; rank 0 writes the checkpoints while the
+    others wait, and every rank reads them on resume.
     """
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         # the default generators (nn.LSTM's dropout) and the explicit one
         # (dropout after linear1) start from different seeds: on the CPU
         # both are the same generator, which would draw equal masks
-        torch.default_generator.manual_seed(seed + 1)
+        drop_seed = seed if mesh is None else _rank_seed(seed, mesh.rank)
+        torch.default_generator.manual_seed(drop_seed + 1)
         if dev.type == "cuda":
             with torch.cuda.device(dev):
-                torch.cuda.manual_seed(seed + 1)
-        generator = torch.Generator(device=dev).manual_seed(seed)
+                torch.cuda.manual_seed(drop_seed + 1)
+        generator = torch.Generator(device=dev).manual_seed(drop_seed)
         return _train(
             params, forward_fn, loss_fn, train_dataset, valid_dataset,
             save_dir, dev=dev, generator=generator, eval_fn=eval_fn,
@@ -185,7 +204,16 @@ def train(params, forward_fn: Callable, loss_fn: Callable,
             clip_grad_norm=clip_grad_norm, load_last_states=load_last_states,
             lr_scheduler_patience=lr_scheduler_patience,
             lr_scheduler_factor=lr_scheduler_factor, seed=seed,
-            log_metrics=log_metrics, epoch_hook=epoch_hook)
+            log_metrics=log_metrics, epoch_hook=epoch_hook, mesh=mesh)
+
+
+def _rank_seed(seed: int, rank: int) -> int:
+    r"""Rank ``rank``'s dropout seed: ``seed`` itself on rank 0 (so one
+    rank draws what the single-device loop draws), else one drawn from
+    ``(seed, rank)``."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
 
 
 def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
@@ -193,11 +221,18 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
            batch_size, valid_batch_size, num_iter_between_vald,
            early_stop_threshold, clip_grad_norm, load_last_states,
            lr_scheduler_patience, lr_scheduler_factor, seed, log_metrics,
-           epoch_hook):
+           epoch_hook, mesh):
     os.makedirs(save_dir, exist_ok=True)
     eval_fn = eval_fn or loss_fn
-    metrics_path = (os.path.join(save_dir, "metrics.jsonl") if log_metrics
-                    else None)
+    lead = mesh is None or mesh.rank == 0
+    log = print if lead else (lambda *args, **kw: None)
+    metrics_path = (os.path.join(save_dir, "metrics.jsonl")
+                    if log_metrics and lead else None)
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"mesh's {mesh.size} ranks")
+        params = replicate(params, mesh)
     params = tree_map(lambda t: t.detach().to(dev, torch.float32, copy=True)
                       .requires_grad_(), params)
     leaves = _tensor_leaves(params)
@@ -227,12 +262,12 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
             if _state_fits(state, leaves):
                 opt.load_state_dict(state)
             else:
-                print("optimizer config changed; reinitializing opt state")
+                log("optimizer config changed; reinitializing opt state")
         elif os.path.exists(os.path.join(save_dir, "optimizer_states.pkl")):
-            print("optimizer_states.pkl holds the JAX package's optimizer "
-                  "state; reinitializing opt state")
-        print("resumed: epoch %d it %d total_it %d" %
-              (train_info["epoch"], train_info["it"], train_info["total_it"]))
+            log("optimizer_states.pkl holds the JAX package's optimizer "
+                "state; reinitializing opt state")
+        log("resumed: epoch %d it %d total_it %d" %
+            (train_info["epoch"], train_info["it"], train_info["total_it"]))
 
     def set_lr():
         # ReduceLROnPlateau as JAX folds it in: Adam's update scaled by
@@ -240,15 +275,16 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
         for group in opt.param_groups:
             group["lr"] = learning_rate * lr_scale
 
-    def train_step(xs, ys, lengths, init):
-        loss = loss_fn(forward_fn(params, xs, lengths, init, generator), ys,
-                       lengths)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if clip_grad_norm > 0:
-            _clip_by_global_norm(leaves, clip_grad_norm)
-        opt.step()
-        return loss.detach()
+    # one rank without a mesh: the same step on the whole batch
+    step = make_dp_train_step(forward_fn, loss_fn, opt,
+                              mesh or Mesh(None, 0, 1, dev),
+                              clip_grad_norm=clip_grad_norm)
+
+    def best_params():
+        best = tree_map(lambda t: t.detach(), params)
+        if lead and os.path.exists(best_file):
+            best = load_pytree(best_file, dev)
+        return best if mesh is None else replicate(best, mesh)
 
     vald_max_len = (max(len(d) for d in valid_dataset.data)
                     if valid_dataset is not None else 0)
@@ -281,15 +317,15 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
             epoch_hook(epoch)
         train_loss = torch.zeros((), dtype=torch.float64, device=dev)
         n_step = 0
-        batches = list(padded_batches(train_dataset, batch_size, rng_np))
+        batches = list(padded_batches(train_dataset, batch_size, rng_np,
+                                      drop_last=mesh is not None))
         n_between = (num_iter_between_vald if num_iter_between_vald > 0
                      else len(batches))
         for i, (xs, ys, lengths, init) in enumerate(batches):
             if epoch == train_info["epoch"] and i < train_info["it"]:
                 continue
-            train_loss += train_step(_upload(xs, dev), _upload(ys, dev),
-                                     torch.from_numpy(lengths),
-                                     _upload(init, dev)).double()
+            train_loss += step(params, xs, ys, lengths, init,
+                               generator).double()
             n_step += 1
             total_it += 1
 
@@ -297,29 +333,39 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
                 vald = run_validation()
                 tl = float(train_loss) / max(n_step, 1)
                 vl = vald if vald is not None else tl
-                print("epoch %4d/%d  it %4d/%d  total %6d  "
-                      "train %.6f  vald %.6f" %
-                      (epoch, num_epoch, i + 1, len(batches), total_it, tl, vl))
+                if mesh is not None:
+                    # early stop and the plateau decide alike on every rank
+                    tl, vl = mesh.broadcast_(torch.tensor(
+                        [tl, vl], dtype=torch.float64, device=dev)).tolist()
+                log("epoch %4d/%d  it %4d/%d  total %6d  "
+                    "train %.6f  vald %.6f" %
+                    (epoch, num_epoch, i + 1, len(batches), total_it, tl, vl))
                 _log_jsonl(metrics_path,
                            {"epoch": epoch, "it": i + 1, "total_it": total_it,
                             "train_loss": tl, "vald_loss": vl})
-                save_pytree(params, w_file)
-                torch.save(opt.state_dict(), opt_file)
-                with open(info_file, "w") as f:
-                    json.dump({"epoch": epoch, "it": i + 1,
-                               "total_it": total_it,
-                               "min_vald_loss": min_vald,
-                               "lr_scale": lr_scale}, f)
-                if vl < min_vald:
+                if lead:
+                    save_pytree(params, w_file)
+                    torch.save(opt.state_dict(), opt_file)
+                    with open(info_file, "w") as f:
+                        json.dump({"epoch": epoch, "it": i + 1,
+                                   "total_it": total_it,
+                                   "min_vald_loss": min_vald,
+                                   "lr_scale": lr_scale}, f)
+                improved = vl < min_vald
+                if improved:
                     min_vald = vl
-                    save_pytree(params, best_file)
+                    if lead:
+                        save_pytree(params, best_file)
+                if mesh is not None:
+                    mesh.barrier()      # rank 0's files are written
+                if improved:
                     esn = (early_stop_threshold if early_stop_threshold > 0
                            else float("inf"))
                 else:
                     esn -= 1
                     if esn == 0:
-                        print("early stop")
-                        return load_pytree(best_file, dev)
+                        log("early stop")
+                        return best_params()
                 # ReduceLROnPlateau stepped per validation: torch's relative
                 # threshold 1e-4, patience counted in validations
                 if lr_scheduler_patience is not None:
@@ -332,12 +378,10 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
                             lr_scale *= lr_scheduler_factor
                             plateau_count = 0
                             set_lr()
-                            print(f"plateau: lr scale -> {lr_scale}")
+                            log(f"plateau: lr scale -> {lr_scale}")
                 train_loss = torch.zeros((), dtype=torch.float64, device=dev)
                 n_step = 0
         train_info["it"] = 0
         train_info["epoch"] = epoch
 
-    if os.path.exists(best_file):
-        return load_pytree(best_file, dev)
-    return tree_map(lambda t: t.detach(), params)
+    return best_params()

@@ -8,6 +8,14 @@ velocity loss, rnn7's FK-weighted pose loss and rnn8's pos-weighted BCE.
 ``lengths`` may lie on the host (it is uploaded without waiting for the
 device). rnn3's horizon windows are taken per sequence, where the
 reference's concatenated batch lets them straddle two sequences.
+
+Each loss is a sum over valid frames divided by a count of valid frames,
+and every count is a function of the lengths alone. ``count_lengths``
+(default ``lengths``) gives the lengths the counts are taken over: under
+data parallelism a rank passes its own rows and the global batch's
+lengths, so the ranks' losses sum to the loss of the whole batch (a mean
+of the ranks' means would weight each rank alike, whatever its number of
+valid frames).
 """
 
 from __future__ import annotations
@@ -32,23 +40,36 @@ def _mask(ys, lengths):
             < _lengths(ys, lengths)[None]).to(ys.dtype)
 
 
-def masked_mse(ys, labels, lengths):
+def _count_lengths(ys, lengths, count_lengths):
+    r"""The lengths the denominators count: ``count_lengths`` where given
+    (the global batch's), else ``lengths``."""
+    return _lengths(ys, lengths if count_lengths is None else count_lengths)
+
+
+def _count(ys, lengths, count_lengths):
+    r"""The number of valid frames the denominators count."""
+    return _count_lengths(ys, lengths, count_lengths).sum().to(ys.dtype)
+
+
+def masked_mse(ys, labels, lengths, count_lengths=None):
     r"""Mean squared error over the valid frames (= MSE over the batch's
     sequences concatenated)."""
     m = _mask(ys, lengths)[..., None]
-    return (((ys - labels) ** 2) * m).sum() / (m.sum() * ys.shape[-1])
+    return (((ys - labels) ** 2) * m).sum() \
+        / (_count(ys, lengths, count_lengths) * ys.shape[-1])
 
 
-def masked_distance(ys, labels, lengths, dim: int = 3):
+def masked_distance(ys, labels, lengths, dim: int = 3, count_lengths=None):
     r"""Mean distance of ``dim``-D points over the valid frames."""
     T, B = ys.shape[:2]
     dist = torch.linalg.vector_norm((ys - labels).reshape(T, B, -1, dim),
                                     dim=-1)
     m = _mask(ys, lengths)[..., None]
-    return (dist * m).sum() / (m.sum() * dist.shape[-1])
+    return (dist * m).sum() \
+        / (_count(ys, lengths, count_lengths) * dist.shape[-1])
 
 
-def velocity_horizon_loss(ys, labels, lengths):
+def velocity_horizon_loss(ys, labels, lengths, count_lengths=None):
     r"""Per-frame MSE plus the MSE of velocity sums over windows of 6, 20
     and 60 frames. A row's windows start at ``length % w``, so its first
     ``length % w`` frames are left out, like the reference's
@@ -56,7 +77,8 @@ def velocity_horizon_loss(ys, labels, lengths):
     T, B, D = ys.shape
     lengths = _lengths(ys, lengths)
     m2 = _mask(ys, lengths)
-    total = masked_mse(ys, labels, lengths)
+    total = masked_mse(ys, labels, lengths, count_lengths)
+    count_lengths = _count_lengths(ys, lengths, count_lengths)
     zero = torch.zeros((1, B, D), dtype=ys.dtype, device=ys.device)
     cs_p = torch.cat([zero, torch.cumsum(ys * m2[..., None], 0)])
     cs_t = torch.cat([zero, torch.cumsum(labels * m2[..., None], 0)])
@@ -74,7 +96,9 @@ def velocity_horizon_loss(ys, labels, lengths):
         starts, ends = starts.clamp_max(T), ends.clamp_max(T)
         err = ((window_sums(cs_p, starts, ends)
                 - window_sums(cs_t, starts, ends)) ** 2) * valid[..., None]
-        total = total + err.sum() / torch.clamp_min(valid.sum() * D, 1.0)
+        # a row of length L has L // w whole windows
+        n_valid = (count_lengths // w).sum().to(ys.dtype)
+        total = total + err.sum() / torch.clamp_min(n_valid * D, 1.0)
     return total
 
 
@@ -96,11 +120,12 @@ def make_fk_pose_loss(body_model, fk_weight: float = 100.0):
         pb = torch.cat([torch.zeros_like(pb[:, :, :1]), pb[:, :, 1:]], 2)
         return torch.einsum("ij,tbjk->tbik", ancestor.to(r6d.dtype), pb)
 
-    def loss(ys, labels, lengths):
+    def loss(ys, labels, lengths, count_lengths=None):
         m = _mask(ys, lengths)
         err = ((fk(ys) - fk(labels)) ** 2) * m[..., None, None]
-        return masked_mse(ys, labels, lengths) \
-            + fk_weight * err.sum() / (m.sum() * 72)
+        return masked_mse(ys, labels, lengths, count_lengths) \
+            + fk_weight * err.sum() / (_count(ys, lengths, count_lengths)
+                                       * 72)
 
     return loss
 
@@ -110,10 +135,11 @@ def masked_bce_pos_weight(pos_weight):
     weighted per class by ``pos_weight [D]``."""
     pw_host = torch.as_tensor(pos_weight, dtype=torch.float32)
 
-    def loss(ys, labels, lengths):
+    def loss(ys, labels, lengths, count_lengths=None):
         pw = pw_host.to(ys.device, ys.dtype, non_blocking=True)
         m = _mask(ys, lengths)[..., None]
         l = -(pw * labels * F.logsigmoid(ys) + (1 - labels) * F.logsigmoid(-ys))
-        return (l * m).sum() / (m.sum() * ys.shape[-1])
+        return (l * m).sum() \
+            / (_count(ys, lengths, count_lengths) * ys.shape[-1])
 
     return loss

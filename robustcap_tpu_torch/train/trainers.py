@@ -26,7 +26,7 @@ from ..nn.rnn import init_net_apply, init_rnn_params, rnn_forward_padded
 from ..smpl.model import ParametricModel, default_body_model
 from . import features as F
 from .data import SeqDataset
-from .loop import NumpyTreeUnpickler, save_pytree, train
+from .loop import NumpyTreeUnpickler, load_pytree, save_pytree, train
 from .losses import (make_fk_pose_loss, masked_bce_pos_weight,
                      masked_distance, masked_mse, velocity_horizon_loss)
 
@@ -282,11 +282,20 @@ def merge_weights(weight_dir: Optional[str] = None, out_file: str = None,
 
 
 def train_all(aist_train, aist_val, amass_train, amass_val, **kw):
-    r"""Train the six modules, then merge their best weights."""
+    r"""Train the six modules, then merge their best weights. With a
+    ``mesh`` rank 0 writes the merged file and every rank reads it after a
+    barrier."""
     train_rnn2(aist_train, aist_val, amass_train, amass_val, **kw)
     train_rnn3(aist_train, aist_val, amass_train, amass_val, **kw)
     train_rnn4(aist_train, aist_val, amass_train, amass_val, **kw)
     train_rnn6(aist_train, aist_val, amass_train, amass_val, **kw)
     train_rnn7(aist_train, aist_val, amass_train, amass_val, **kw)
     train_rnn8(amass_train, amass_val, **kw)
-    return merge_weights(device=kw.get("device", "cuda"))
+    mesh = kw.get("mesh")
+    if mesh is None:
+        return merge_weights(device=kw.get("device", "cuda"))
+    if mesh.rank == 0:
+        merge_weights(device="cpu")
+    mesh.barrier()
+    return load_pytree(os.path.join(paths.weight_dir, "sig_mp",
+                                    "best_weights.pkl"), mesh.device)

@@ -30,7 +30,9 @@ def _submodules():
 # the batched step and the offline evaluation on a fixture corpus, and
 # SMPLify's refinement of it; then a serving bundle exported and loaded, the
 # multiplexer and the live server; then training: the loop with dropout, a
-# trainer with its features, the AMASS camera synthesis and the merge.
+# trainer with its features, the AMASS camera synthesis and the merge; then
+# the data-parallel step and loop on a one-rank mesh, and the corpus
+# drivers on raw fixture trees.
 _DRIVE = """
 import torch
 from robustcap_tpu_torch.config import SigMPConfig
@@ -126,6 +128,39 @@ aug, _ = features.amass_camera_augment(
     torch.Generator().manual_seed(0), torch.from_numpy(base[0][0]),
     torch.from_numpy(base[1][0]), torch.ones(16), target="rnn6")
 assert torch.isfinite(aug).all()
+from robustcap_tpu_torch.parallel import (initialize_distributed,
+                                          make_dp_train_step, make_mesh)
+from robustcap_tpu_torch.train.loop import _tensor_leaves
+assert not initialize_distributed(device="cpu").enabled
+mesh = make_mesh("cpu")
+tree = rnn.init_rnn_params(torch.Generator().manual_seed(0), 3, 2, 4)
+step = make_dp_train_step(make_forward_fn(0.1), masked_mse, torch.optim.Adam(
+    [t.requires_grad_() for t in _tensor_leaves(tree)], lr=1e-3), mesh)
+assert float(step(tree, np.ones((6, 2, 3), np.float32),
+                  np.ones((6, 2, 2), np.float32), np.array([6, 4]), None,
+                  torch.Generator().manual_seed(1))) >= 0
+with tempfile.TemporaryDirectory() as d:
+    train(tree, make_forward_fn(0.1), masked_mse, ds, ds, d, num_epoch=1,
+          batch_size=2, mesh=mesh)
+from robustcap_tpu_torch.config import AmassSplits
+from robustcap_tpu_torch.preprocess import (amass_sequence_to_work, corpus,
+                                            fixtures_raw, preprocess_amass,
+                                            random_camera)
+assert random_camera(torch.Generator().manual_seed(0)).shape == (3, 3)
+with tempfile.TemporaryDirectory() as d:
+    fixtures_raw.build_raw_aist(d + "/aist", model, n_seq=1, T=12, n_cam=2)
+    corpus.preprocess_aist(d + "/aist", d + "/w", model=model, n_cameras=2,
+                           device="cpu")
+    fixtures_raw.build_raw_pw3d(d + "/pw", model, n_seq=1, T60=12)
+    corpus.preprocess_3dpw(d + "/pw", d + "/w", model=model, device="cpu")
+    assert preprocess_amass(model, d, d + "/w", {"train": AmassSplits.train},
+                            kinds=("train",), device="cpu") == {
+        "train": {k: [] for k in ("pose", "tran", "joint3d", "imu_ori",
+                                  "imu_acc", "sync_3d_mp")}}
+entry = amass_sequence_to_work(model, np.zeros((24, 72), np.float32),
+                               np.zeros((24, 3), np.float32), 120.0,
+                               device="cpu")
+assert entry["imu_acc"].shape == (12, 6, 3)
 """
 
 
@@ -165,7 +200,12 @@ def test_no_jax_import_in_sources():
     for name in ("smplify/__init__.py", "smplify/prior.py",
                  "smplify/losses.py", "smplify/runner.py", "ops/lbfgs.py",
                  "train/__init__.py", "train/data.py", "train/features.py",
-                 "train/losses.py", "train/loop.py", "train/trainers.py"):
+                 "train/losses.py", "train/loop.py", "train/trainers.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/distributed.py", "preprocess/aist.py",
+                 "preprocess/corpus.py", "preprocess/datasets.py",
+                 "preprocess/detectors.py", "preprocess/fixtures_raw.py",
+                 "preprocess/occlusion.py", "preprocess/smooth_bbox.py"):
         assert os.path.join(PKG, name) in files, name
     for path in files:
         for mod in _imports(path):
@@ -294,6 +334,43 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                           "--out", str(tmp_path / "q.pkl")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    from robustcap_tpu_torch.parallel import (initialize_distributed,
+                                              make_global_mesh, make_mesh)
+    from robustcap_tpu_torch.preprocess import (amass_sequence_to_work,
+                                                corpus, preprocess_amass)
+    for call in (
+            make_mesh, make_global_mesh,
+            lambda: initialize_distributed("127.0.0.1:1", 1, 0),
+            lambda: amass_sequence_to_work(model, np.zeros((24, 72)),
+                                           np.zeros((24, 3))),
+            lambda: preprocess_amass(model, str(tmp_path), str(tmp_path),
+                                     {"train": []}),
+            lambda: corpus.preprocess_aist(str(tmp_path), str(tmp_path)),
+            lambda: corpus.write_not_aligned(str(tmp_path)),
+            lambda: corpus.preprocess_totalcapture_pre(str(tmp_path)),
+            lambda: corpus.preprocess_totalcapture(str(tmp_path),
+                                                   str(tmp_path)),
+            lambda: corpus.preprocess_3dpw(str(tmp_path), str(tmp_path)),
+            lambda: main(["preprocess", "--dataset", "pw3d", "--raw",
+                          str(tmp_path), "--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not torch.distributed.is_initialized()
+
+
+def test_cli_lists_preprocess(capsys):
+    from robustcap_tpu_torch.__main__ import main
+    with pytest.raises(SystemExit) as e:
+        main(["--help"])
+    assert e.value.code == 0
+    assert "preprocess" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as e:
+        main(["preprocess", "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    for choice in ("aist", "aist_pre", "tc_pre", "totalcapture_pre", "tc",
+                   "totalcapture", "pw3d", "pw3d_occ", "amass"):
+        assert choice in out
 
 
 @pytest.mark.parametrize("field", ["pallas_serve", "int8_compute"])
