@@ -126,7 +126,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
    the port's fixtures, ``python -m robustcap_tpu_torch preprocess`` over
    every ``--dataset`` choice on the card, the work dicts held against the
    CPU's, and ``amass_sequence_to_work`` timed on one 12,000-frame motion
-   on the card and the CPU with its synchronizing calls.
+   on the card and the CPU with its synchronizing calls;
+12. live capture (``sensors/``, ``streaming/{native,sync,detector,unity}``),
+   in-process with threads over loopback on free ports, at full width
+   (``live_mode()`` with the tail kernel): six ``FakeDotTransport``s playing
+   a fixture motion's IMUs at 60 Hz feed ``run_imu_bridge``'s
+   ``XsensDotSet`` (native rings); a receiver decodes the UDP packets,
+   calibrates with ``tpose_calibration`` on the first 2 s and feeds
+   ``ImuCamStream``; ``run_detector`` with a ``mediapipe`` stand-in (the
+   fixture's keypoints as pixel fractions, some frames without a detection,
+   the first three among them, so that all-zero keypoints at confidence 0
+   reach the tail kernel) sends 240 packets through a recording relay to ``run_live_demo``, and a
+   Unity client reads one frame per packet. Held: the native datapath in
+   use, no ring drops, one ``geometry_tail`` launch per frame (counted into
+   the kernel line), finite frames from a zero translation, the keypoints
+   against the fixture within ``UV_BOUND``, and the frames against a replay
+   of the recorded packets through ``LiveServer.process`` with the plain
+   tail on the card and on the CPU within phase 4's bounds widened by the
+   Unity text's rounding; then a ``MotionViewer`` round trip. Prints frames
+   per second, the relay-to-Unity latency, ``ImuCamStream.tick``'s host
+   time, IMU packets against resampler ticks, and the ring drops.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -2596,9 +2615,10 @@ PRE_ATOL = 1e-5                  # positions, rotations, keypoints (card/CPU)
 EPS32 = float(np.finfo(np.float32).eps)
 
 
-def _free_port():
+def _free_port(udp=False):
     import socket
-    with socket.socket() as s:
+    with socket.socket(type=socket.SOCK_DGRAM if udp
+                       else socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
@@ -3312,6 +3332,448 @@ def check_preprocess(model, dev, card):
     return dict(secs=secs, held=held, fps=fps, syncs=sum(syncs.values()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: live capture
+# ---------------------------------------------------------------------------
+
+LIVE_CAPTURE_FRAMES = 240   # 4 s of detector ticks at 60 Hz
+LIVE_CALIB_SAMPLES = 120    # the fakes' first 2 s at 60 Hz, for the T-pose
+LIVE_FIXTURE_T = 120        # the fixture motion the fakes and stand-in loop
+LIVE_SEED = 31
+# KeypointNormalizer (float32: pixel fractions times the image size, then
+# K^-1) against the fixture's normalized keypoints: a few float32 roundings
+# of pixel coordinates up to ~640, over a focal length of ~620
+UV_BOUND = 1e-6
+# rotation matrices axis-angle -> matrix -> MotionViewer's axis-angle ->
+# 6-digit text -> matrix: float32 conversions and the text's rounding
+VIEWER_BOUND = 1e-4
+VIEWER_FRAMES = 8
+# latency is also summarized from this frame on: the first frame's warm-up
+# queues the packets behind it, which the following frames drain
+LIVE_STEADY_FROM = 60
+
+
+def _mediapipe_standin(landmarks):
+    r"""A ``mediapipe`` module whose ``Pose().process(frame)`` returns
+    ``landmarks[int(frame[0, 0, 0])]`` as MediaPipe's landmark list, or no
+    detection where that entry is ``None``."""
+    import types
+    from types import SimpleNamespace as NS
+
+    def process(frame):
+        lm = landmarks[int(frame[0, 0, 0])]
+        if lm is None:
+            return NS(pose_landmarks=None)
+        return NS(pose_landmarks=NS(landmark=[
+            NS(x=float(x), y=float(y), visibility=float(v))
+            for x, y, v in lm]))
+
+    mp = types.ModuleType("mediapipe")
+    mp.solutions = NS(pose=NS(Pose=lambda **kw: NS(process=process)))
+    return mp
+
+
+def _thread(target, errors, **kw):
+    import threading
+
+    def run():
+        try:
+            target(**kw)
+        except Exception as e:   # reported by the caller after the join
+            errors.append(f"{getattr(target, '__name__', target)}: "
+                          f"{type(e).__name__}: {e}")
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _pose_R(pose_aa):
+    r"""Axis-angle poses [T, 24, 3] -> rotation matrices [T, 24, 3, 3] on
+    the CPU, in float64."""
+    import torch
+    from robustcap_tpu_torch.math.angular import axis_angle_to_rotation_matrix
+    aa = torch.as_tensor(np.asarray(pose_aa, np.float64))
+    return axis_angle_to_rotation_matrix(aa).reshape(len(aa), 24, 3, 3)
+
+
+def check_live_capture(params, model, dev, card,
+                       frames=LIVE_CAPTURE_FRAMES, calib=LIVE_CALIB_SAMPLES,
+                       rate=60.0):
+    r"""Phase 12: the live-capture chain in-process, threads over loopback
+    on free ports. Six ``FakeDotTransport``s playing a fixture motion's IMUs
+    (pumped at ``rate``) feed ``run_imu_bridge``'s ``XsensDotSet``; a
+    receiver decodes the bridge's UDP packets, calibrates with
+    ``tpose_calibration`` on the first ``calib`` of them and pushes the rest
+    into ``ImuCamStream``; ``run_detector`` (a ``mediapipe`` stand-in giving
+    the fixture's keypoints as pixel fractions, some frames without a
+    detection) sends ``frames`` packets to a relay that records them and
+    forwards them to ``run_live_demo`` (``live_mode()`` with the tail
+    kernel); a Unity client reads the frames. Then the recorded packets are
+    replayed through ``LiveServer.process`` with the plain tail on ``dev``
+    and on the CPU and held against the frames received, and a short
+    ``MotionViewer`` round trip sends the replay's poses to a client.
+    Returns ``{"geometry_tail": launches}``."""
+    import socket
+    import sys
+    import threading
+
+    import torch
+    from robustcap_tpu_torch.config import LiveConfig, SigMPConfig
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.eval import build_aist_sequences
+    from robustcap_tpu_torch.math.angular import (
+        axis_angle_to_rotation_matrix, rotation_matrix_to_quaternion)
+    from robustcap_tpu_torch.ops import geometry_tail
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.sensors import FakeDotTransport, bridge
+    from robustcap_tpu_torch.smpl import ParametricModel
+    from robustcap_tpu_torch.streaming import (
+        ImuCamStream, LiveServer, MotionViewer, encode_detector_packet,
+        encode_unity_frame, native_available, parse_detector_packet,
+        parse_imu_packet, parse_unity_frame, run_live_demo,
+        tpose_calibration)
+    from robustcap_tpu_torch.streaming.detector import (KeypointNormalizer,
+                                                        run_detector)
+
+    t_start = time.perf_counter()
+    _require(native_available(), "live capture: the native datapath did "
+             "not build (native_available() is False)")
+    ds = build_fixture_dataset(model, n_seq=1, T=LIVE_FIXTURE_T, n_cam=1,
+                               seed=LIVE_SEED)
+    seq = build_aist_sequences(ds, num_cameras=1)[0]
+    ori = np.asarray(ds["imu_ori"][0], np.float32)
+    acc = np.asarray(ds["imu_acc"][0], np.float32)
+    T = len(ori)
+    quats = rotation_matrix_to_quaternion(torch.from_numpy(
+        ori.reshape(-1, 3, 3))).numpy().reshape(T, 6, 4)
+
+    # the camera's view: fixture keypoints as pixel fractions, with frames
+    # the camera drops (None from the reader) and frames without a
+    # detection (None from the stand-in); the first three have none, so the
+    # normalizer sends all-zero keypoints at confidence 0
+    live0 = LiveConfig()
+    K = np.asarray(live0.camera_intrinsic, np.float64)
+    size = np.asarray([live0.camera_width, live0.camera_height], np.float64)
+    landmarks, dropped = [], set()
+    for k in range(frames):
+        j = seq.j2dc[k % len(seq.j2dc)].astype(np.float64)
+        px = np.concatenate([j[:, :2], np.ones((33, 1))], 1) @ K.T
+        lm = np.concatenate([px[:, :2] / size, j[:, 2:]], 1)
+        landmarks.append(None if k < 3 or k % 23 == 11
+                         else lm.astype(np.float32))
+        if k % 17 == 5:
+            dropped.add(k)
+    norm = KeypointNormalizer(K, live0.camera_width, live0.camera_height)
+    expected_uv, uv_gap, reused, zeros = [], 0.0, 0, 0
+    for k in range(frames):
+        lm = None if k in dropped else landmarks[k]
+        expected_uv.append(norm(lm).copy())
+        if lm is None:
+            if expected_uv[-1].any():
+                reused += 1
+            else:
+                zeros += 1
+        else:
+            uv_gap = max(uv_gap, float(np.abs(
+                expected_uv[-1] - seq.j2dc[k % len(seq.j2dc)]).max()))
+    _require(zeros > 0, "live capture: no frame sends all-zero keypoints")
+    _require(uv_gap <= UV_BOUND, f"live capture: KeypointNormalizer "
+             f"{uv_gap:.2e} from the fixture's keypoints (bound {UV_BOUND})")
+
+    live = LiveConfig(imu_udp_port=_free_port(udp=True),
+                      detector_udp_port=_free_port(udp=True),
+                      unity_tcp_port=_free_port(), fps=rate)
+    relay_port = _free_port(udp=True)
+    cfg = dataclasses.replace(SigMPConfig.live_mode(), pallas_tail=True)
+    n_bridge = calib + int(frames * rate / 60.0) + int(rate)
+
+    transports, sets, errors = [], [], []
+
+    def factory(addr):
+        i = len(transports)
+        tr = FakeDotTransport(address=addr, signal_fn=lambda f, i=i: (
+            quats[f % T, i], acc[f % T, i]))
+        transports.append(tr)
+        return tr
+
+    class KeptDotSet(bridge.XsensDotSet):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            sets.append(self)
+
+    stop_pump, stop_rx = threading.Event(), threading.Event()
+    stream_ready = threading.Event()
+    box = {"rx": 0, "calib_q": []}
+
+    def pump():
+        nxt = time.perf_counter()
+        while not stop_pump.is_set():
+            for tr in list(transports):
+                tr.pump(1)
+            nxt += 1.0 / rate
+            stop_pump.wait(max(0.0, nxt - time.perf_counter()))
+
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", live.imu_udp_port))
+    rx.settimeout(0.2)
+
+    def receive():
+        while not stop_rx.is_set():
+            try:
+                buf = rx.recv(4096)
+            except socket.timeout:
+                continue
+            t, q, a = parse_imu_packet(buf)
+            box["rx"] += 1
+            if not stream_ready.is_set():
+                box["calib_q"].append(q)
+                if len(box["calib_q"]) == calib:
+                    cq = np.stack(box["calib_q"])          # [K, 6, 4]
+                    box["calib"] = tpose_calibration(
+                        cq[:, 5], cq.transpose(1, 0, 2), device=dev)
+                    box["stream"] = ImuCamStream(box["calib"], device=dev)
+                    stream_ready.set()
+                continue
+            for i in range(6):
+                box["stream"].push(i, t, q[i], a[i])
+
+    class TimedStream:
+        def __init__(self, stream):
+            self.stream, self.ms, self.R_CB = stream, [], []
+
+        def tick(self):
+            t0 = time.perf_counter()
+            out = self.stream.tick()
+            if out is not None:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.R_CB.append(out[1])
+            return out
+
+    relay = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    relay.bind(("127.0.0.1", relay_port))
+    relay.settimeout(60)
+    recorded = []
+
+    def forward():
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as out:
+            for _ in range(frames):
+                buf = relay.recv(65536)
+                recorded.append((time.perf_counter(), buf))
+                out.sendto(buf, ("127.0.0.1", live.detector_udp_port))
+
+    def reader(k):
+        return None if k in dropped else np.full((1, 1, 3), k, np.float32)
+
+    cam_k = iter(range(frames))
+    saved_mp = sys.modules.get("mediapipe")
+    sys.modules["mediapipe"] = _mediapipe_standin(landmarks)
+    bridge_cls = bridge.XsensDotSet
+    bridge.XsensDotSet = KeptDotSet
+    threads, out_frames, out_t, buf = {}, [], [], b""
+    try:
+        geometry_tail.LAUNCHES = 0
+        threads["server"] = _thread(
+            run_live_demo, errors, params=params, model=model, cfg=cfg,
+            live=live, max_frames=frames, device=dev)
+        unity, deadline = None, time.time() + 60
+        while unity is None:
+            try:
+                unity = socket.create_connection(
+                    ("127.0.0.1", live.unity_tcp_port), timeout=10)
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.1)
+        threads["relay"] = _thread(forward, errors)
+        threads["receiver"] = _thread(receive, errors)
+        threads["pump"] = _thread(pump, errors)
+        n_sent = []
+        threads["bridge"] = _thread(
+            lambda: n_sent.append(bridge.run_imu_bridge(
+                addresses=[f"D0:7A:00:00:00:0{i}" for i in range(6)],
+                live=live, dest=("127.0.0.1", live.imu_udp_port),
+                max_packets=n_bridge, transport_factory=factory)), errors)
+        _require(stream_ready.wait(60), f"live capture: no calibration "
+                 f"after 60 s ({box['rx']} IMU packets; {errors})")
+        timed = TimedStream(box["stream"])
+        threads["detector"] = _thread(
+            run_detector, errors, sync_stream=timed,
+            camera_reader=lambda: reader(next(cam_k)),
+            rcm=box["calib"].R_CM, live=live,
+            server_addr=("127.0.0.1", relay_port), max_frames=frames)
+        with unity:
+            unity.settimeout(60)
+            while len(out_frames) < frames:
+                while b"$" not in buf:
+                    chunk = unity.recv(65536)
+                    _require(bool(chunk), f"live capture: the server closed "
+                             f"the stream after {len(out_frames)} frames "
+                             f"({errors})")
+                    buf += chunk
+                out_t.append(time.perf_counter())
+                frame, _, buf = buf.partition(b"$")
+                out_frames.append(parse_unity_frame(frame + b"$"))
+        for name in ("detector", "relay", "server", "bridge"):
+            threads[name].join(timeout=60)
+        launches = geometry_tail.LAUNCHES
+    finally:
+        bridge.XsensDotSet = bridge_cls
+        if saved_mp is None:
+            sys.modules.pop("mediapipe", None)
+        else:
+            sys.modules["mediapipe"] = saved_mp
+        stop_pump.set()
+        stop_rx.set()
+        for th in threads.values():
+            th.join(timeout=10)
+        rx.close()
+        relay.close()
+    alive = [k for k, th in threads.items() if th.is_alive()]
+    _require(not alive and not errors,
+             f"live capture: threads {alive} still running, errors {errors}")
+    rings = sets[0]._buffers
+    drops = sum(r.dropped for r in rings)
+    native = all(r._lib is not None for r in rings) and \
+        timed.stream.resampler._lib is not None
+    _require(native, "live capture: the rings or the resampler run the "
+             "Python fallback")
+    _require(drops == 0, f"live capture: the rings dropped {drops} records")
+    _require(len(recorded) == frames and len(out_frames) == frames,
+             f"live capture: {len(recorded)} packets, {len(out_frames)} "
+             f"frames for {frames} detector ticks")
+    _require(launches == frames, f"live capture: {launches} geometry_tail "
+             f"launches for {frames} frames, expected one per frame")
+    pose_rx = np.stack([f[0] for f in out_frames])
+    tran_rx = np.stack([f[1] for f in out_frames])
+    _require(np.isfinite(pose_rx).all() and np.isfinite(tran_rx).all(),
+             "live capture: non-finite frames")
+    _require(float(np.abs(tran_rx[0]).max()) <= 1e-4,
+             f"live capture: first translation {tran_rx[0]}, expected 0")
+    packets = [parse_detector_packet(b) for _, b in recorded]
+    # each packet's keypoints are the normalizer's, through the text format
+    _require(all(np.array_equal(p[0], parse_detector_packet(
+        encode_detector_packet(expected_uv[k], *p[1:]))[0])
+        for k, p in enumerate(packets)),
+        "live capture: the detector's keypoints are not the normalizer's")
+    uv_text = max(float(np.abs(p[0] - expected_uv[k]).max())
+                  for k, p in enumerate(packets))
+    R_CB = np.stack(timed.R_CB)
+    orth = float(np.abs(np.einsum("tnij,tnkj->tnik", R_CB, R_CB)
+                        - np.eye(3)).max())
+    _require(orth <= 1e-5, f"live capture: R_CB not orthonormal ({orth:.2e})")
+
+    # replay the recorded packets with the plain tail, on dev and the CPU
+    cpu = torch.device("cpu")
+    plain = SigMPConfig.live_mode()
+    replays = {}
+    for what, p, m, d in (
+            ("card" if dev.type == "cuda" else str(dev), params, model, dev),
+            ("CPU", tree_map(lambda x: x.to(cpu), params),
+             ParametricModel(data=model.data, device=cpu), cpu)):
+        srv = LiveServer(p, m, plain, device=d)
+        out = [srv.process(*pk) for pk in packets]
+        replays[what] = (np.stack([o[0] for o in out]),
+                         np.stack([o[1] for o in out]))
+    ref_pose, ref_tran = next(iter(replays.values()))
+    rounded = [parse_unity_frame(encode_unity_frame(a, t))
+               for a, t in zip(ref_pose, ref_tran)]
+    r_pose = float((_pose_R(np.stack([r[0] for r in rounded]))
+                    - _pose_R(ref_pose)).abs().max())
+    r_tran = float(np.abs(np.stack([r[1] for r in rounded])
+                          - ref_tran).max())
+    bounds = (POSE_MEDIAN_BOUND + r_pose, POSE_P95_BOUND + r_pose,
+              TRAN_BOUND + r_tran)
+    got = (_pose_R(pose_rx), torch.as_tensor(tran_rx, dtype=torch.float64))
+    ok = True
+    for what, (pa, ta) in replays.items():
+        ok &= _compare(f"live capture: frames received (tail kernel) vs "
+                       f"replay with the plain tail ({what})", got,
+                       (_pose_R(pa), torch.as_tensor(ta, dtype=torch.float64)),
+                       tuple(m for m in (60, 120) if m < frames) + (frames,),
+                       bounds)
+    _require(ok, "live capture: frames outside their bounds")
+
+    # MotionViewer: the replay's poses as rotation matrices from dev to a
+    # client, back through axis-angle and text
+    viewer = MotionViewer(n=1, port=_free_port(), device=dev)
+    v_errors = []
+    th = _thread(viewer.connect, v_errors)
+    client, deadline = None, time.time() + 30
+    while client is None:
+        try:
+            client = socket.create_connection(("127.0.0.1", viewer.port),
+                                              timeout=10)
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.05)
+    v_gap, vbuf = 0.0, b""
+    try:
+        with client:
+            client.settimeout(30)
+
+            def read_msg():
+                nonlocal vbuf
+                while b"$" not in vbuf:
+                    chunk = client.recv(65536)
+                    _require(bool(chunk), "MotionViewer closed the stream")
+                    vbuf += chunk
+                msg, _, vbuf = vbuf.partition(b"$")
+                return msg + b"$"
+
+            hello = read_msg().decode()
+            th.join(timeout=10)
+            _require(not v_errors and hello.startswith("1#")
+                     and hello.endswith("#subject0$"),
+                     f"MotionViewer handshake {hello!r} ({v_errors})")
+            R_dev = axis_angle_to_rotation_matrix(torch.as_tensor(
+                ref_pose[:VIEWER_FRAMES], device=dev)).reshape(-1, 24, 3, 3)
+            for k in range(VIEWER_FRAMES):
+                viewer.update_all([R_dev[k].cpu().numpy()], [ref_tran[k]])
+                aa, tr = parse_unity_frame(read_msg())
+                v_gap = max(v_gap, float((_pose_R(aa[None])[0] - R_dev[k]
+                                          .cpu().double()).abs().max()),
+                            float(np.abs(tr - ref_tran[k]).max()))
+    finally:
+        viewer.close()
+    _require(v_gap <= VIEWER_BOUND, f"MotionViewer round trip {v_gap:.2e} "
+             f"(bound {VIEWER_BOUND})")
+
+    lat = (np.asarray(out_t) - np.asarray([t for t, _ in recorded])) * 1e3
+    steady = lat[LIVE_STEADY_FROM:] if frames > LIVE_STEADY_FROM else lat
+    tick_ms = np.asarray(timed.ms)
+    fps = (frames - 1) / (out_t[-1] - out_t[0])
+
+    def pq(x, scale=1.0, unit="ms"):
+        return (f"p50 {np.median(x) * scale:.3f} {unit}, p95 "
+                f"{np.percentile(x, 95) * scale:.3f} {unit}")
+    print(f"[live] phase 12, {card}: {frames} frames through the chain "
+          f"(fake DOTs -> XsensDotSet -> run_imu_bridge -> UDP -> "
+          f"ImuCamStream -> run_detector -> relay -> run_live_demo, "
+          f"live_mode + tail kernel -> Unity): {fps:.2f} frames/s at the "
+          f"Unity client; latency packet-in at the relay to frame-out at "
+          f"Unity {pq(lat)}, first frame {lat[0]:.3f} ms, from frame "
+          f"{LIVE_STEADY_FROM} on {pq(steady)} (host clock); "
+          f"ImuCamStream.tick host time {pq(tick_ms, 1e3, 'us')} over "
+          f"{len(tick_ms)} ticks; "
+          f"IMU packets sent {n_sent[0]}, received {box['rx']} "
+          f"({calib} for the T-pose calibration), resampler ticks "
+          f"{len(tick_ms)}; ring drops {drops}; native datapath {native}; "
+          f"geometry_tail launches {launches} for {frames} frames; "
+          f"keypoints: normalizer vs fixture {uv_gap:.2e} (bound "
+          f"{UV_BOUND}), the packets' are the normalizer's through the "
+          f"text ({uv_text:.2e}), "
+          f"{zeros} frames before the first detection sent all-zero "
+          f"keypoints, {reused} later ones without a detection reused the "
+          f"last; R_CB "
+          f"orthonormal within {orth:.2e}; text rounding widens the bounds "
+          f"by pose {r_pose:.2e}, tran {r_tran:.2e} m; MotionViewer round "
+          f"trip {v_gap:.2e} over {VIEWER_FRAMES} frames (bound "
+          f"{VIEWER_BOUND}); phase 12 in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"geometry_tail": launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3352,7 +3814,6 @@ def main():
     model = ParametricModel(data=data, device=dev)
     model_bs = ParametricModel(data=data, use_pose_blendshape=True,
                                device=dev)
-
     lstm = check_lstm(params, dev, gen)
     tail = check_tail([model, model_bs], dev, gen)
     launches = check_main(params, model, dev)
@@ -3377,6 +3838,8 @@ def main():
     check_preprocess(model, dev, card)
     print(f"[parallel] phase 11 in {time.perf_counter() - t11:.1f} s",
           flush=True)
+    for key, n in check_live_capture(params, model, dev, card).items():
+        launches[key] += n
 
     kernels = [
         dict(name="lstm_scan", route="cuda",

@@ -15,7 +15,14 @@ the batched path (``forward_offline_batched``) and the offline evaluation
 CUDA-graph replay of the per-frame step (``graphs``), the multiplexer, the
 live server, the latency harness and the wire formats (``streaming``), and
 the ``export``, ``latency`` and ``live-server`` commands
-(``python -m robustcap_tpu_torch``).
+(``python -m robustcap_tpu_torch``); SMPLify, training, data parallelism and
+corpus preprocessing; and live capture: the native IMU datapath, IMU-camera
+sync, the detector process, the Unity viewer, the sensor drivers
+(``sensors``) and the ``imu-bridge`` command.
 """
 
 __version__ = "0.1.0"
+
+from . import math  # noqa: E402,F401
+
+__all__ = ["math", "__version__"]

@@ -13,6 +13,7 @@ and the serving workflows.
         [--trace-dir DIR] [--int8-compute] [--device cuda]
     python -m robustcap_tpu_torch live-server [--weights W | --bundle DIR]
         [--device cuda]
+    python -m robustcap_tpu_torch imu-bridge
     python -m robustcap_tpu_torch preprocess --dataset aist|aist_pre|tc_pre|
         tc|pw3d|pw3d_occ|amass --raw DIR [--out DIR] [--kinds test]
         [--device cuda]
@@ -31,6 +32,10 @@ or with ``--torch-save`` as a ``torch.save`` checkpoint
 (``train.save_checkpoint``). ``preprocess`` turns a raw corpus tree into
 the work ``.pt`` dicts (``preprocess/corpus.py``; ``amass`` walks the
 ``config.AmassSplits`` corpora into ``train.pt`` and ``val.pt``).
+``imu-bridge`` connects the Xsens DOTs of ``config.LiveConfig`` over BLE
+(it needs the ``bleak`` package) and forwards their samples as UDP packets
+(``sensors/bridge.py``); it does no tensor work, so it takes no
+``--device`` and joins no distributed job.
 
 Under ``torchrun`` (or with ``ROBUSTCAP_COORDINATOR`` and its companions
 set) the command first joins the job (``parallel.initialize_distributed``),
@@ -183,6 +188,11 @@ def cmd_live_server(args):
         run_live_demo(_load_params(args), device=args.device)
 
 
+def cmd_imu_bridge(args):
+    from robustcap_tpu_torch.sensors import run_imu_bridge
+    run_imu_bridge()
+
+
 def cmd_export(args):
     r"""Export the streaming step to a serving bundle
     (``robustcap_tpu_torch/serving.py``)."""
@@ -237,6 +247,9 @@ def main(argv=None):
     device_flag(ps)
     ps.set_defaults(fn=cmd_live_server)
 
+    pb = sub.add_parser("imu-bridge", help="BLE IMU -> UDP bridge")
+    pb.set_defaults(fn=cmd_imu_bridge, device=None)
+
     px = sub.add_parser("export",
                         help="export the streaming step to a serving "
                              "bundle (no re-trace at load)")
@@ -290,7 +303,8 @@ def main(argv=None):
     from robustcap_tpu_torch.parallel import (initialize_distributed,
                                               make_global_mesh)
     args.mesh = None
-    if initialize_distributed(device=args.device).enabled:
+    if (args.device is not None
+            and initialize_distributed(device=args.device).enabled):
         args.mesh = make_global_mesh(device=args.device)
     args.fn(args)
 

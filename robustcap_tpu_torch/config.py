@@ -12,7 +12,8 @@ import os
 from typing import Tuple
 
 __all__ = [
-    "Paths", "paths", "AmassSplits", "SigMPConfig", "EVAL_PROFILES", "LiveConfig",
+    "Paths", "paths", "AmassSplits", "HUMBIBody33", "SigMPConfig",
+    "EVAL_PROFILES", "LiveConfig",
     "PW3D_OCCLUDED_SEQUENCES", "VEL_SCALE", "TRAN_OFFSET", "MP_VERTEX_MASK",
     "IMU_VERTEX_MASK", "IMU_JOINT_MASK", "SMPL_PARENT",
 ]
@@ -83,6 +84,46 @@ class AmassSplits:
     val = ["HumanEva", "MPI_HDM05", "MPI_mosh", "SFU", "SOMA", "WEIZMANN",
            "Transitions_mocap", "SSM_synced"]
     test = []
+
+
+class HUMBIBody33:
+    r"""33-keypoint body skeleton matching MediaPipe Pose landmark layout."""
+    n_keypoints = 33
+
+    labels = [
+        "pelvis",
+        "left_hip", "right_hip",
+        "lowerback",
+        "left_knee", "right_knee",
+        "upperback",
+        "left_ankle", "right_ankle",
+        "thorax",
+        "left_toes", "right_toes",
+        "lowerneck",
+        "left_clavicle", "right_clavicle",
+        "upperneck",
+        "left_shoulder", "right_shoulder",
+        "left_elbow", "right_elbow",
+        "left_wrist", "right_wrist",
+        "head_top", "left_eye", "right_eye",
+        "left_hand_I0", "left_hand_L0",
+        "right_hand_I0", "right_hand_L0",
+        "left_foot_T0", "left_foot_L0",
+        "right_foot_T0", "right_foot_L0",
+    ]
+
+    parents = [None, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
+               16, 17, 18, 19, 15, 15, 15, 20, 20, 21, 21, 7, 7, 8, 8]
+
+    # SMPL mesh vertex ids realizing the extended (non-SMPL-joint) keypoints
+    extended_keypoints = {
+        22: 411, 23: 2800, 24: 6260,
+        25: 2135, 26: 2062,
+        27: 5595, 28: 5525,
+        29: 3292, 30: 3318,
+        31: 6691, 32: 6718,
+    }
+
 
 # Root-velocity scale used when training/integrating rnn3
 VEL_SCALE = 3

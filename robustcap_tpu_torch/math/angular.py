@@ -8,19 +8,23 @@ from __future__ import annotations
 import enum
 import math
 
+import numpy as np
 import torch
 
 from .general import lerp, normalize_tensor, vector_cross_matrix
 
 __all__ = [
     "RotationRepresentation", "to_rotation_matrix", "radian_to_degree",
-    "degree_to_radian", "angle_between", "svd_rotate",
+    "degree_to_radian", "normalize_angle", "angle_difference",
+    "angle_between", "svd_rotate",
     "axis_angle_to_rotation_matrix", "rotation_matrix_to_axis_angle",
     "r6d_to_rotation_matrix", "r6d_to_rotation_matrix_nd",
     "rotation_matrix_to_r6d",
     "quaternion_to_axis_angle", "axis_angle_to_quaternion",
     "quaternion_to_rotation_matrix", "rotation_matrix_to_quaternion",
-    "euler_angle_to_rotation_matrix", "generate_random_rotation_matrix",
+    "euler_angle_to_rotation_matrix", "rotation_matrix_to_euler_angle",
+    "quaternion_product", "quaternion_inverse", "quaternion_mean",
+    "generate_random_rotation_matrix",
     "generate_random_rotation_matrix_constrained",
 ]
 
@@ -56,6 +60,46 @@ def radian_to_degree(q):
 
 def degree_to_radian(q):
     return q * (math.pi / 180.0)
+
+
+def normalize_angle(q):
+    r"""Radians wrapped into [-pi, pi)."""
+    mod = q % (2 * math.pi)
+    return torch.where(mod >= math.pi, mod - 2 * math.pi, mod)
+
+
+def angle_difference(target, source):
+    return normalize_angle(target - source)
+
+
+def quaternion_product(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    r"""Hamilton product of wxyz quaternions (any leading shape)."""
+    shape = q1.shape
+    q1, q2 = q1.reshape(-1, 4), q2.reshape(-1, 4)
+    w1, xyz1 = q1[:, :1], q1[:, 1:]
+    w2, xyz2 = q2[:, :1], q2[:, 1:]
+    xyz = torch.linalg.cross(xyz1, xyz2, dim=-1) + w1 * xyz2 + w2 * xyz1
+    w = w1 * w2 - (xyz1 * xyz2).sum(1, keepdim=True)
+    return torch.cat((w, xyz), 1).reshape(shape)
+
+
+def quaternion_inverse(q: torch.Tensor) -> torch.Tensor:
+    r"""Conjugate of wxyz quaternions (any leading shape)."""
+    shape = q.shape
+    q = q.reshape(-1, 4)
+    return torch.cat((q[:, :1], -q[:, 1:]), 1).reshape(shape)
+
+
+def quaternion_mean(q: torch.Tensor) -> torch.Tensor:
+    r"""Sign-aligned mean of wxyz quaternions -> [4]: each sample is flipped
+    where its pivot component (the column of largest mean magnitude) is
+    negative, then the mean is normalized."""
+    q = q.reshape(-1, 4)
+    ref_col = q.abs().mean(0).argmax()
+    # where(.. < 0) rather than sign(): a sample whose pivot component is
+    # exactly 0 is kept (its flip is a no-op), not zeroed out
+    signs = torch.where(q[:, ref_col] < 0, -1.0, 1.0)[:, None]
+    return normalize_tensor((q * signs).mean(0))
 
 
 def axis_angle_to_rotation_matrix(a: torch.Tensor) -> torch.Tensor:
@@ -182,6 +226,15 @@ def euler_angle_to_rotation_matrix(q: torch.Tensor, seq: str = "XYZ"):
         return mats[2] @ mats[1] @ mats[0]
     raise ValueError("seq must be all-intrinsic (upper) or all-extrinsic "
                      "(lower)")
+
+
+def rotation_matrix_to_euler_angle(r, seq: str = "XYZ") -> np.ndarray:
+    r"""Rotation matrices -> euler angles [N, 3] on the host, through
+    scipy (uppercase ``seq`` intrinsic, lowercase extrinsic)."""
+    from scipy.spatial.transform import Rotation
+    if isinstance(r, torch.Tensor):
+        r = r.detach().cpu().numpy()
+    return Rotation.from_matrix(np.asarray(r).reshape(-1, 3, 3)).as_euler(seq)
 
 
 def angle_between(rot1, rot2,

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["lerp", "normalize_tensor", "append_value", "append_zero",
-           "append_one", "vector_cross_matrix"]
+           "append_one", "vector_cross_matrix", "block_diagonal_matrix"]
 
 
 def lerp(a, b, t):
@@ -47,3 +47,9 @@ def vector_cross_matrix(x: torch.Tensor) -> torch.Tensor:
                      x[:, 2], zeros, -x[:, 0],
                      -x[:, 1], x[:, 0], zeros), dim=1)
     return m.reshape(-1, 3, 3)
+
+
+def block_diagonal_matrix(matrices) -> torch.Tensor:
+    r"""Block-diagonal matrix of a sequence of 2-D tensors (the dtype and
+    device of the first)."""
+    return torch.block_diag(*matrices)

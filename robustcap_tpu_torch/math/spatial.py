@@ -16,9 +16,11 @@ import numpy as np
 import torch
 
 __all__ = [
-    "KinematicTree", "get_tree", "mat3_mul", "bone_vector_to_joint_position",
-    "joint_position_to_bone_vector", "forward_kinematics_R",
-    "inverse_kinematics_R", "forward_kinematics",
+    "KinematicTree", "get_tree", "mat3_mul", "transformation_matrix",
+    "decode_transformation_matrix", "inverse_transformation_matrix",
+    "bone_vector_to_joint_position", "joint_position_to_bone_vector",
+    "forward_kinematics_R", "inverse_kinematics_R", "forward_kinematics_T",
+    "inverse_kinematics_T", "forward_kinematics",
 ]
 
 
@@ -81,6 +83,26 @@ def mat3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 
+def transformation_matrix(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    r"""Homogeneous transforms [*, 4, 4] from R [*, 3, 3] and p [*, 3]."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype,
+                         device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat((torch.cat((R, p[..., None]), -1), bottom), -2)
+
+
+def decode_transformation_matrix(T: torch.Tensor):
+    r"""T [*, 4, 4] -> (R [*, 3, 3], p [*, 3])."""
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def inverse_transformation_matrix(T: torch.Tensor) -> torch.Tensor:
+    r"""Closed-form inverse of rigid transforms [*, 4, 4]."""
+    R, p = decode_transformation_matrix(T)
+    invR = R.transpose(-1, -2)
+    return transformation_matrix(invR, -(invR @ p[..., None])[..., 0])
+
+
 def bone_vector_to_joint_position(bone_vec: torch.Tensor, parent):
     r"""Tree prefix sum as one product with the ancestor matrix."""
     tree = get_tree(parent)
@@ -119,6 +141,27 @@ def inverse_kinematics_R(R_global: torch.Tensor, parent) -> torch.Tensor:
     parent_R = R_global[:, torch.as_tensor(tree.parent_clamped)]
     local = mat3_mul(parent_R.transpose(-1, -2), R_global)
     return torch.cat([R_global[:, :1], local[:, 1:]], dim=1)
+
+
+def forward_kinematics_T(T_local: torch.Tensor, parent) -> torch.Tensor:
+    r"""Global transforms [B, J, 4, 4] from local ones, level by level."""
+    tree = get_tree(parent)
+    T_local = T_local.reshape(T_local.shape[0], -1, 4, 4)
+    T_glb = T_local.clone()
+    for level in tree.levels:
+        idx = list(level)
+        pidx = tree.parent_clamped[idx].tolist()
+        T_glb[:, idx] = T_glb[:, pidx] @ T_local[:, idx]
+    return T_glb
+
+
+def inverse_kinematics_T(T_global: torch.Tensor, parent) -> torch.Tensor:
+    r"""Local transforms from global ones, root kept global."""
+    tree = get_tree(parent)
+    T_global = T_global.reshape(T_global.shape[0], -1, 4, 4)
+    parent_T = T_global[:, tree.parent_clamped.tolist()]
+    local = inverse_transformation_matrix(parent_T) @ T_global
+    return torch.cat([T_global[:, :1], local[:, 1:]], dim=1)
 
 
 def forward_kinematics(R_local: torch.Tensor, p_local: torch.Tensor, parent):

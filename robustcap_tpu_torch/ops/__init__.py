@@ -1,2 +1,8 @@
-r"""Hand-written CUDA kernels (``csrc/``) behind wrappers that run their
-plain PyTorch versions on CPU tensors."""
+r"""Device-side ops: the hand-written CUDA kernels (``csrc/``) behind
+wrappers that run their plain PyTorch versions on CPU tensors, Procrustes
+and the lane-batched L-BFGS."""
+
+from .procrustes import (reconstruction_error,  # noqa: F401
+                         similarity_transform)
+
+__all__ = ["similarity_transform", "reconstruction_error"]

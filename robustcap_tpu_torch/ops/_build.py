@@ -7,7 +7,8 @@ the source, every shared header ``csrc/*.cuh`` and the flags, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is. Nothing
 is built when a module is imported: the kernel wrappers call :func:`load` on
 their first launch, and :func:`build_all` compiles every source at once, one
-``nvcc`` process each, all started together.
+``nvcc`` process each, all started together. :func:`host_library` builds a
+host C++ source with ``g++`` into the same directory, keyed the same way.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import tempfile
 import threading
 from typing import Dict, Iterable, List
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "library_path",
-           "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "HOST_FLAGS",
+           "library_path", "build_all", "load", "host_library"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -31,6 +32,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lstm_scan", "geometry_tail", "serve_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -47,15 +49,43 @@ def _nvcc() -> str:
                        "toolkit")
 
 
-def library_path(name: str) -> str:
-    r"""Where ``csrc/<name>.cu`` builds to, keyed by its content, the
-    shared headers' and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
-            glob.glob(os.path.join(CSRC, "*.cuh"))):
+def _keyed_path(name: str, sources: List[str], flags) -> str:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def library_path(name: str) -> str:
+    r"""Where ``csrc/<name>.cu`` builds to, keyed by its content, the
+    shared headers' and the flags."""
+    return _keyed_path(name, [os.path.join(CSRC, f"{name}.cu")] + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh"))), NVCC_FLAGS)
+
+
+def host_library(src: str) -> str:
+    r"""Build the host C++ source ``src`` with ``g++`` into
+    ``_build/<stem>-<hash>.so`` (keyed by its content and ``HOST_FLAGS``,
+    written to a temporary file and renamed into place, so that processes
+    building at once never see a partial library); returns its path.
+    Raises ``OSError`` without ``g++`` and ``CalledProcessError`` when the
+    compile fails."""
+    out = _keyed_path(os.path.splitext(os.path.basename(src))[0], [src],
+                      HOST_FLAGS)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *HOST_FLAGS, src, "-o", tmp], check=True,
+                       capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def _start(name: str):

@@ -188,6 +188,12 @@ class ParametricModel:
     def inverse_kinematics_R(self, R_global):
         return M.inverse_kinematics_R(R_global, self.tree)
 
+    def forward_kinematics_T(self, T_local):
+        return M.forward_kinematics_T(T_local, self.tree)
+
+    def inverse_kinematics_T(self, T_global):
+        return M.inverse_kinematics_T(T_global, self.tree)
+
     def vertex_index(self, vertex_ids) -> torch.Tensor:
         r"""``vertex_ids`` as an index tensor clipped to the model's vertex
         range, the way the JAX package's gathers clamp an out-of-range index
