@@ -145,7 +145,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
    tail on the card and on the CPU within phase 4's bounds widened by the
    Unity text's rounding; then a ``MotionViewer`` round trip. Prints frames
    per second, the relay-to-Unity latency, ``ImuCamStream.tick``'s host
-   time, IMU packets against resampler ticks, and the ring drops.
+   time, IMU packets against resampler ticks, and the ring drops;
+13. dynamics and display (``dynamics/``, ``viz/``, ``eval/visualize.py``,
+   ``compat``): (a) ``RigidBodyDynamics`` (``torch.func``) on the
+   6890-vertex body at three seeded states in float32 and float64, card
+   against CPU (float64 within ``DYN_F64_REL``, float32 ``M`` and ``h``
+   within ``DYN_F32_REL``, forward dynamics by its residual), ``M``
+   symmetric and positive definite, free fall near -9.81, each function's
+   ms and synchronizing calls a call; (b) ``run_single_view`` with the
+   serve kernel on phase 7's fixture sequence against the kernels off
+   within phase 4's bounds (its launches counted into the kernel line),
+   then refined by SMPLify, and ``view_aist`` at 1920x1080 over two frames
+   (default configuration) with the skinning's and the host renderer's
+   seconds a frame; (c) ``view_aist_unity`` against the same call on the
+   CPU, through the Unity text; (d) the ``compat`` facade's calls on the
+   card.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -3774,6 +3788,274 @@ def check_live_capture(params, model, dev, card,
     return {"geometry_tail": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: dynamics, display and the facade on the card
+# ---------------------------------------------------------------------------
+
+DYN_STATES = 3
+DYN_SEED = 41
+DYN_JOINT = 18               # the point Jacobian's joint (left elbow)
+DYN_F64_REL = 1e-9           # card against CPU, float64: other sum orders
+DYN_F32_REL = 1e-4           # float32 M and h (second derivatives of FK)
+DYN_RESIDUAL = 1e-4          # |(M + 1e-6 I) qdd - (tau - h)| / |tau - h|
+DYN_REPS = 5
+VIEW_FRAMES = 2
+# 4 and 5 decimals in the Unity text: the axis-angle's rounding moves a
+# rotation-matrix entry by at most about 2.2e-4, the translation by 5e-6 m
+UNITY_POSE_TEXT = 2.5e-4
+UNITY_TRAN_TEXT = 1e-5
+
+
+def _dyn_quantities(dyn, q, qd, qdd, tau):
+    return {"M": dyn.mass_matrix(q), "h": dyn.bias_force(q, qd),
+            "inverse": dyn.inverse_dynamics(q, qd, qdd),
+            "forward": dyn.forward_dynamics(q, qd, tau),
+            "jacobian": dyn.point_jacobian(q, DYN_JOINT), "com": dyn.com(q),
+            "zmp": dyn.zmp(q, qd, qdd)}
+
+
+def check_dynamics(model, dev, card):
+    r"""Phase 13 (a): ``RigidBodyDynamics`` on the full-width body on the
+    card at ``DYN_STATES`` seeded states in float32 and float64, against
+    the same on the CPU: float64 within ``DYN_F64_REL`` of each quantity's
+    largest magnitude; float32 ``M`` and ``h`` within ``DYN_F32_REL``,
+    forward dynamics by its residual (``M + 1e-6 I`` has a condition number
+    near 1e5); ``M`` symmetric and positive definite, free fall within 0.5
+    of -9.81. Prints each function's ms a call (host clock around
+    synchronized calls) and its synchronizing calls a call."""
+    import torch
+    from robustcap_tpu_torch.dynamics import RigidBodyDynamics
+    from robustcap_tpu_torch.smpl import ParametricModel
+
+    cpu = torch.device("cpu")
+    t_start = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        on_card = (model if dtype == torch.float32 else ParametricModel(
+            data=model.data, dtype=dtype, device=dev))
+        dyn = RigidBodyDynamics(on_card)
+        ref = RigidBodyDynamics(ParametricModel(data=model.data, dtype=dtype,
+                                                device=cpu))
+        eye = torch.eye(dyn.num_q, dtype=torch.float64)
+        zero = torch.zeros(dyn.num_q, dtype=dtype, device=dev)
+        fall = float(dyn.forward_dynamics(zero, zero, zero)[1])
+        _require(abs(fall + 9.81) < 0.5, f"dynamics {dtype}: free fall "
+                 f"{fall:.4f}, expected -9.81 within 0.5")
+        worst, resid, asym, eig_min = {}, 0.0, 0.0, np.inf
+        rng = np.random.RandomState(DYN_SEED)
+        for _ in range(DYN_STATES):
+            # q, qdot, qddot from N(0, 0.1), tau from N(0, 5)
+            state = [rng.normal(0, s, dyn.num_q) for s in (0.1, 0.1, 0.1,
+                                                            5.0)]
+            got = _dyn_quantities(dyn, *(torch.as_tensor(
+                x, dtype=dtype, device=dev) for x in state))
+            want = _dyn_quantities(ref, *(torch.as_tensor(x, dtype=dtype)
+                                          for x in state))
+            for k, v in got.items():
+                _require(bool(torch.isfinite(v).all()),
+                         f"dynamics {dtype}: {k} not finite")
+                rel = float((v.cpu() - want[k]).abs().max()
+                            / want[k].abs().max())
+                worst[k] = max(worst.get(k, 0.0), rel)
+            Mm = got["M"].double().cpu()
+            asym = max(asym, float((Mm - Mm.T).abs().max() / Mm.abs().max()))
+            eig_min = min(eig_min, float(torch.linalg.eigvalsh(
+                Mm + 1e-6 * eye).min()))
+            rhs = torch.as_tensor(state[3]) - got["h"].double().cpu()
+            resid = max(resid, float(((Mm + 1e-6 * eye) @ got["forward"]
+                                      .double().cpu() - rhs).norm()
+                                     / rhs.norm()))
+        held = (worst if dtype == torch.float64
+                else {k: worst[k] for k in ("M", "h")})
+        bound = DYN_F64_REL if dtype == torch.float64 else DYN_F32_REL
+        _require(all(v <= bound for v in held.values()),
+                 f"dynamics {dtype}: card against CPU {held} (bound {bound})")
+        _require(resid <= DYN_RESIDUAL, f"dynamics {dtype}: forward "
+                 f"dynamics residual {resid:.2e} (bound {DYN_RESIDUAL})")
+        _require(asym <= (1e-12 if dtype == torch.float64 else 1e-5)
+                 and eig_min > 0, f"dynamics {dtype}: M asymmetric by "
+                 f"{asym:.2e} or not positive definite ({eig_min:.3e})")
+
+        q, qd, qdd, tau = (torch.as_tensor(x, dtype=dtype, device=dev)
+                           for x in state)
+        calls = {"mass_matrix": lambda: dyn.mass_matrix(q),
+                 "bias_force": lambda: dyn.bias_force(q, qd),
+                 "inverse_dynamics": lambda: dyn.inverse_dynamics(q, qd,
+                                                                  qdd),
+                 "forward_dynamics": lambda: dyn.forward_dynamics(q, qd, tau),
+                 "point_jacobian": lambda: dyn.point_jacobian(q, DYN_JOINT),
+                 "com": lambda: dyn.com(q),
+                 "zmp": lambda: dyn.zmp(q, qd, qdd)}
+        timing = []
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DYN_REPS):
+                fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / DYN_REPS
+            syncs = sum(_count_syncs(fn).values())
+            timing.append(f"{name} {ms:.2f} ms, {syncs} syncs")
+        print(f"[dynamics] phase 13 (a), {card}, {dtype}, "
+              f"{model.num_verts}-vertex body, {DYN_STATES} seeded states: "
+              f"card vs CPU max relative "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+              + f" (held: {', '.join(held)} within {bound}); forward "
+              f"dynamics residual {resid:.2e} (bound {DYN_RESIDUAL}); M "
+              f"asymmetry {asym:.2e}, least eigenvalue of M + 1e-6 I "
+              f"{eig_min:.3e}; free fall {fall:.4f} m/s^2; a call (host "
+              f"clock, {DYN_REPS} synchronized calls): " + "; ".join(timing),
+              flush=True)
+    print(f"[dynamics] phase 13 (a) in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+def _unity_files(out_dir):
+    def read(name):
+        with open(os.path.join(out_dir, name)) as f:
+            return np.array([[float(v) for v in line.split(",")]
+                             for line in f.read().split("\n")])
+    return read("pose.txt").reshape(-1, 24, 3), read("tran.txt")
+
+
+def check_views(params, model, dev, card):
+    r"""Phase 13 (b)-(d): ``run_single_view`` with the serve kernel on phase
+    7's fixture sequence against the kernels off, within phase 4's bounds
+    (its serve launches counted into the kernel line), then refined by
+    SMPLify; ``view_aist`` at 1920x1080 over ``VIEW_FRAMES`` frames with
+    the default configuration, the skinning's and the software renderer's
+    seconds a frame apart; ``view_aist_unity`` on the card against the same
+    call on the CPU; the facade's calls on the card. Returns
+    ``{"serve_scan": launches}``."""
+    import tempfile
+
+    import torch
+    from robustcap_tpu_torch import compat as art
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.eval import (build_aist_sequences,
+                                          run_single_view, view_aist,
+                                          view_aist_unity)
+    from robustcap_tpu_torch.ops import serve_scan
+    from robustcap_tpu_torch.preprocess import build_fixture_dataset
+    from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
+    from robustcap_tpu_torch.viz import render as R
+
+    t_start = time.perf_counter()
+    ds = build_fixture_dataset(model, n_seq=EVAL_SEQ, T=EVAL_T, n_cam=EVAL_CAM,
+                               seed=EVAL_SEED)
+    seq = build_aist_sequences(ds, num_cameras=EVAL_CAM)[0]
+    serve_scan.LAUNCHES = 0
+    kernel = run_single_view(params, model, seq,
+                             cfg=SigMPConfig(pallas_serve=True),
+                             run_smplify=False)
+    refined = run_single_view(params, model, seq,
+                              cfg=SigMPConfig(pallas_serve=True))
+    launches = serve_scan.LAUNCHES
+    _require(launches == 2, f"run_single_view: {launches} serve launches "
+             "for two calls with pallas_serve, expected one each")
+    plain = run_single_view(params, model, seq, run_smplify=False)
+
+    def as_t(x):
+        return tuple(torch.as_tensor(a, dtype=torch.float64) for a in x)
+    ok = _compare("run_single_view, serve kernel vs kernels off",
+                  as_t(kernel), as_t(plain), (EVAL_T,))
+    _require(ok, "run_single_view: the serve kernel's view outside phase "
+             "4's bounds")
+    _require(all(np.isfinite(x).all() for x in refined),
+             "run_single_view: non-finite SMPLify output")
+    move = float(np.abs(refined[0] - kernel[0]).max())
+
+    # the overlay at 1080p: time the skinning (calc_mesh FK) and the renderer
+    fk_s, render_s = [], []
+    real_render = R.Renderer.render
+    real_fk = type(model).forward_kinematics
+
+    def timed_render(self, *a, **k):
+        t0 = time.perf_counter()
+        out = real_render(self, *a, **k)
+        render_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_fk(*a, **k):
+        if not k.get("calc_mesh"):
+            return real_fk(model, *a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_fk(model, *a, **k)
+        torch.cuda.synchronize()
+        fk_s.append(time.perf_counter() - t0)
+        return out
+
+    R.Renderer.render = timed_render
+    model.forward_kinematics = timed_fk
+    try:
+        t0 = time.perf_counter()
+        frames = view_aist(0, 0, params=params, model=model, dataset=ds,
+                           max_frames=VIEW_FRAMES)
+        view_s = time.perf_counter() - t0
+    finally:
+        R.Renderer.render = real_render
+        del model.forward_kinematics
+    _require(len(frames) == VIEW_FRAMES and all(
+        f.shape == (1080, 1920, 3) and f.dtype == np.uint8 and f.any()
+        for f in frames), "view_aist: expected non-empty 1080p frames")
+
+    # Unity export on the card and on the CPU
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as d:
+        card_dir = view_aist_unity(0, 1, params=params, model=model,
+                                   dataset=ds, out_dir=os.path.join(d, "c"))
+        cpu_dir = view_aist_unity(
+            0, 1, params=tree_map(lambda x: x.to(cpu), params),
+            model=ParametricModel(data=model.data, device=cpu), dataset=ds,
+            out_dir=os.path.join(d, "h"))
+        (aa_c, tr_c), (aa_h, tr_h) = _unity_files(card_dir), \
+            _unity_files(cpu_dir)
+    _require(aa_c.shape == (EVAL_T, 24, 3) and tr_c.shape == (EVAL_T, 3),
+             f"view_aist_unity: files of shape {aa_c.shape}, {tr_c.shape}")
+    ok = _compare("view_aist_unity, card vs CPU (Unity text)",
+                  (_pose_R(aa_c), torch.as_tensor(tr_c)),
+                  (_pose_R(aa_h), torch.as_tensor(tr_h)), (EVAL_T,),
+                  (POSE_MEDIAN_BOUND + UNITY_POSE_TEXT,
+                   POSE_P95_BOUND + UNITY_POSE_TEXT,
+                   TRAN_BOUND + UNITY_TRAN_TEXT))
+    _require(ok, "view_aist_unity: card outside its bounds from the CPU")
+    _require(float(np.abs(tr_c[0]).max()) <= 1e-4,
+             "view_aist_unity: first translation not zeroed")
+
+    # the facade, as tests/test_filters_compat.py calls it, on the card
+    Rm = art.math.axis_angle_to_rotation_matrix(
+        torch.tensor([[0.1, 0, 0]], device=dev))
+    body = art.ParametricModel(data=synthetic_smpl_data(num_verts=100),
+                               device=dev)
+    lp = art.LowPassFilterRotation(0.5, device=dev)
+    for _ in range(3):
+        smooth = torch.as_tensor(lp(Rm[0].cpu().numpy()), device=dev)
+    img = art.Renderer(resolution=(64, 48), model=model).render(
+        None, model._v_template + torch.tensor([0, 0, 3.0], device=dev),
+        np.array([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]]))
+    err = float(art.PositionErrorEvaluator()(torch.zeros(2, 3, device=dev),
+                                             torch.zeros(2, 3, device=dev)))
+    _require(Rm.shape == (1, 3, 3) and Rm.device.type == dev.type
+             and err == 0.0 and art.SMPLJoint.LELBOW.value == 18
+             and body.num_joints == 24 and body.device.type == dev.type
+             and float((smooth - Rm[0]).abs().max()) < 1e-5 and img.any(),
+             "compat: the facade's calls on the card")
+    print(f"[views] phase 13 (b)-(d), {card}: run_single_view (phase 7's "
+          f"fixture, {EVAL_T} frames) with the serve kernel held against "
+          f"the kernels off; SMPLify moves its pose entries by up to "
+          f"{move:.3e}; serve launches {launches}; view_aist at 1920x1080, "
+          f"{VIEW_FRAMES} frames with SMPLify in {view_s:.2f} s: skinning "
+          f"(one calc_mesh FK for the frames) {sum(fk_s):.4f} s, "
+          f"{sum(fk_s) / VIEW_FRAMES:.4f} s a frame; software renderer "
+          f"{np.mean(render_s):.2f} s a frame over {model.face.shape[0]} "
+          f"faces (host); view_aist_unity card vs CPU held; compat on the "
+          f"card held; phase 13 (b)-(d) in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"serve_scan": launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3840,6 +4122,12 @@ def main():
           flush=True)
     for key, n in check_live_capture(params, model, dev, card).items():
         launches[key] += n
+    t13 = time.perf_counter()
+    check_dynamics(model, dev, card)
+    for key, n in check_views(params, model, dev, card).items():
+        launches[key] += n
+    print(f"[dynamics] phase 13 in {time.perf_counter() - t13:.1f} s",
+          flush=True)
 
     kernels = [
         dict(name="lstm_scan", route="cuda",

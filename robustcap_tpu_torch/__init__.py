@@ -18,7 +18,10 @@ the ``export``, ``latency`` and ``live-server`` commands
 (``python -m robustcap_tpu_torch``); SMPLify, training, data parallelism and
 corpus preprocessing; and live capture: the native IMU datapath, IMU-camera
 sync, the detector process, the Unity viewer, the sensor drivers
-(``sensors``) and the ``imu-bridge`` command.
+(``sensors``) and the ``imu-bridge`` command; the rigid-body dynamics
+(``dynamics``), display (``viz``, the body model's ``save_*``/``view_*``,
+``eval.visualize``) and the ``articulate``-shaped facade (``compat``):
+every public name of the JAX package has a counterpart here.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 r"""SMPL parametric body model on torch tensors (port of
 ``robustcap_tpu/smpl/model.py``: data loading, the procedural fallback body,
-tree FK/IK and linear blend skinning; the ``view_*``/``save_*`` helpers are
-not ported yet)."""
+tree FK/IK, linear blend skinning, and the ``save_*``/``view_*`` export and
+display helpers, which skin on the model's device and render on the
+host)."""
 
 from __future__ import annotations
 
@@ -248,6 +249,171 @@ class ParametricModel:
         t_v = torch.einsum("vj,bjc->bvc", weights, t_j)
         verts = (R_v @ v0[..., None])[..., 0] + t_v
         return R_glb, add_tran(p_glb), add_tran(verts)
+
+    # -- export / io ---------------------------------------------------------
+
+    def _on_device(self, x):
+        return torch.as_tensor(x).to(self.device, self._J.dtype)
+
+    def save_obj_mesh(self, vertex_position, file_name="a.obj"):
+        r"""Export an obj mesh (model.py:42)."""
+        v = _host(vertex_position)
+        with open(file_name, "w") as fp:
+            for p in v:
+                fp.write("v %f %f %f\n" % (p[0], p[1], p[2]))
+            for f in self.face + 1:
+                fp.write("f %d %d %d\n" % (f[0], f[1], f[2]))
+
+    @staticmethod
+    def save_unity_motion(pose=None, tran=None, output_dir="saved_motions/"):
+        r"""Write pose.txt/tran.txt consumed by the Unity viewer (model.py:56).
+        A tensor pose is converted on its own device, an array in float32 on
+        the CPU; one host copy each."""
+        os.makedirs(output_dir, exist_ok=True)
+        if pose is not None:
+            if not isinstance(pose, torch.Tensor):
+                pose = torch.as_tensor(np.asarray(pose, np.float32))
+            pose = _host(M.rotation_matrix_to_axis_angle(pose)
+                         ).reshape(pose.shape[0], -1)
+            with open(os.path.join(output_dir, "pose.txt"), "w") as f:
+                f.write("\n".join(
+                    ",".join("%.4f" % x for x in row) for row in pose))
+        if tran is not None:
+            tran = _host(tran).reshape(-1, 3)
+            with open(os.path.join(output_dir, "tran.txt"), "w") as f:
+                f.write("\n".join(
+                    ",".join("%.5f" % x for x in row) for row in tran))
+
+    # -- visualization hooks (host-side, optional deps) ----------------------
+
+    def view_motion(self, pose_list, tran_list=None, fps=60,
+                    distance_between_subjects=0.8, output_path=None,
+                    resolution=(720, 720)):
+        r"""Render model motion to frames/video (model.py:309-331).
+
+        The reference opens an interactive open3d window; this rebuild is
+        offscreen — posed meshes are rasterized with the dependency-free
+        software renderer (viz/render.py) and optionally written to a video
+        (``output_path``), so it works headless and in CI. Each subject is
+        skinned in one FK call on the model's device and copied to the host
+        once. Returns the rendered frames ``[T, H, W, 3] uint8``. A
+        single-frame input produces a 60-frame turntable orbit instead of
+        the reference's "show one picture".
+        """
+        verts = []
+        for i, pose in enumerate(pose_list):
+            pose = self._on_device(pose).reshape(-1, self.num_joints, 3, 3)
+            tran = None
+            if tran_list is not None:
+                t = self._on_device(tran_list[i]).reshape(-1, 3)
+                tran = t - t[:1]
+            verts.append(self.forward_kinematics(pose, tran=tran,
+                                                 calc_mesh=True)[2].cpu())
+        return self.view_mesh(verts, fps, distance_between_subjects,
+                              output_path=output_path, resolution=resolution)
+
+    def view_mesh(self, vertex_list, fps=60, distance_between_subjects=0.8,
+                  output_path=None, resolution=(720, 720),
+                  turntable_frames=60):
+        r"""Render meshes (one per subject, offset along x as the reference
+        does — model.py:278-305) through an auto-framed virtual camera.
+
+        vertex_list: length-num_subject list, each reshaping to
+        [num_frame, num_vertex, 3]. Returns frames [T, H, W, 3] uint8 and
+        writes ``output_path`` (mp4 via imageio when available) if given.
+        """
+        from ..viz.render import SoftwareRenderer
+
+        V = self.num_verts
+        v_list, f_list = [], []
+        f = self.face.copy()
+        for i, v in enumerate(vertex_list):
+            v = np.array(_host(v, np.float32)).reshape(-1, V, 3)
+            v[:, :, 0] += distance_between_subjects * i
+            v_list.append(v)
+            f_list.append(f.copy())
+            f = f + V
+        verts = np.concatenate(v_list, axis=1)          # [T, S*V, 3]
+        faces = np.concatenate(f_list)
+
+        W, H = resolution
+        K = np.array([[1.2 * W, 0, W / 2], [0, 1.2 * W, H / 2], [0, 0, 1]],
+                     np.float32)
+        center = verts.reshape(-1, 3).mean(axis=0)
+        radius = float(np.linalg.norm(
+            verts.reshape(-1, 3) - center, axis=1).max())
+        dist = max(3.0 * radius, 1e-3)
+
+        single = len(verts) == 1
+        n_frames = turntable_frames if single else len(verts)
+        renderer = SoftwareRenderer((W, H))
+        frames = []
+        for t in range(n_frames):
+            yaw = (2 * np.pi * t / n_frames) if single else 0.0
+            frame_verts = verts[0] if single else verts[t]
+            cam = self._look_at_transform(center, dist, yaw)
+            vc = (frame_verts - cam["eye"]) @ cam["R"].T
+            frames.append(renderer.render(None, vc, faces, K))
+        frames = np.stack(frames)
+        if output_path is not None:
+            from ..eval.visualize import _write_video
+            _write_video(list(frames), output_path, fps=fps)
+        return frames
+
+    @staticmethod
+    def _look_at_transform(center, dist, yaw):
+        r"""Camera on a horizontal orbit looking at ``center``: returns the
+        world->camera rotation (rows = camera x/y/z axes, +z forward, y
+        down — the pinhole convention of viz/render.py)."""
+        eye = center + dist * np.array(
+            [np.sin(yaw), 0.0, np.cos(yaw)], np.float32)
+        fwd = center - eye
+        fwd = fwd / max(np.linalg.norm(fwd), 1e-9)
+        up = np.array([0.0, 1.0, 0.0], np.float32)       # SMPL y-up
+        right = np.cross(fwd, up)
+        right /= max(np.linalg.norm(right), 1e-9)
+        down = np.cross(fwd, right)
+        return {"eye": eye.astype(np.float32),
+                "R": np.stack([right, down, fwd]).astype(np.float32)}
+
+    def view_mesh_overlay(self, verts, images, K, Tcw=None, fps=60,
+                          output_path=None):
+        r"""Composite posed meshes over camera images (model.py:335-390).
+
+        verts reshapes to [num_frame, num_vertex, 3] (world frame; a tensor
+        is copied to the host once); images broadcast to [num_frame, H, W,
+        3] uint8; K [3, 3]; Tcw [4, 4] world->camera extrinsic. Offscreen
+        rebuild of the reference's open3d overlay window: each frame is
+        rasterized with the software renderer and composited by depth mask.
+        Returns frames; writes ``output_path`` if given.
+        """
+        from ..viz.render import SoftwareRenderer
+
+        verts = _host(verts, np.float32).reshape(-1, self.num_verts, 3)
+        images = np.asarray(images, np.uint8)
+        if images.ndim == 3:
+            images = np.broadcast_to(images, (len(verts),) + images.shape)
+        H, W = images.shape[1:3]
+        Tcw = np.eye(4, dtype=np.float32) if Tcw is None else \
+            _host(Tcw, np.float32)
+        renderer = SoftwareRenderer((W, H))
+        frames = []
+        for t in range(len(verts)):
+            vc = verts[t] @ Tcw[:3, :3].T + Tcw[:3, 3]
+            frames.append(renderer.render(images[t], vc, self.face,
+                                          _host(K, np.float32)))
+        frames = np.stack(frames)
+        if output_path is not None:
+            from ..eval.visualize import _write_video
+            _write_video(list(frames), output_path, fps=fps)
+        return frames
+
+
+def _host(x, dtype=None):
+    r"""``x`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
 
 
 # the process-wide body model, one per device

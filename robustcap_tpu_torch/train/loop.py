@@ -1,10 +1,11 @@
 r"""Generic training loop with checkpoints and resume (port of
 ``robustcap_tpu/train/loop.py``).
 
-Adam, gradient clipping by global norm, validation every N iterations,
-best-checkpoint selection, early stopping, ReduceLROnPlateau stepped per
-validation, a per-epoch hook, and resume of weights, optimizer state and
-progress. Logging goes to stdout and a JSONL metrics file.
+Adam (or the optimizer a factory makes), gradient clipping by global norm,
+validation every N iterations, best-checkpoint selection, early stopping,
+ReduceLROnPlateau stepped per validation, a per-epoch hook, and resume of
+weights, optimizer state and progress. Logging goes to stdout and a JSONL
+metrics file.
 
 Parameters are a tree (nested dicts and lists) of tensors, the layout of
 ``nn.rnn``. ``weights.pkl`` and ``best_weights.pkl`` are pickles of that
@@ -135,19 +136,28 @@ def _clip_by_global_norm(leaves, max_norm):
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def _state_fits(state, leaves) -> bool:
-    r"""True if a saved Adam state belongs to these parameters."""
+def _state_fits(state, opt, leaves) -> bool:
+    r"""True if a saved optimizer state has the structure of ``opt``'s, as
+    the JAX loop compares optax trees: the same parameter groups over the
+    same parameters with the same hyperparameter names (Adam's are not
+    SGD's), and per-parameter tensors of their parameter's shape (or
+    scalars, such as Adam's step)."""
     groups = state.get("param_groups", [])
-    if len(groups) != 1 or groups[0].get("params") != list(range(len(leaves))):
+    mine = opt.state_dict()["param_groups"]
+    if len(groups) != len(mine) or any(
+            g.get("params") != m["params"] or set(g) != set(m)
+            for g, m in zip(groups, mine)):
         return False
-    return all(int(i) < len(leaves)
-               and st["exp_avg"].shape == leaves[int(i)].shape
-               for i, st in state.get("state", {}).items())
+    return all(int(i) < len(leaves) and all(
+        not isinstance(v, torch.Tensor) or v.dim() == 0
+        or v.shape == leaves[int(i)].shape for v in st.values())
+        for i, st in state.get("state", {}).items())
 
 
 def train(params, forward_fn: Callable, loss_fn: Callable,
           train_dataset: SeqDataset, valid_dataset: Optional[SeqDataset],
           save_dir: str, *, eval_fn: Optional[Callable] = None,
+          optimizer: Optional[Callable] = None,
           learning_rate: float = 1e-3, num_epoch: int = 5000,
           batch_size: int = 256, valid_batch_size: int = 64,
           num_iter_between_vald: int = -1, early_stop_threshold: int = -1,
@@ -165,12 +175,16 @@ def train(params, forward_fn: Callable, loss_fn: Callable,
     ``device``, ``lengths`` on the host. A step passes ``count_lengths``,
     the lengths its denominators count (every loss of ``train.losses``
     takes it); validation calls ``eval_fn`` (default ``loss_fn``) without
-    it. Checkpoints in ``save_dir``: ``weights.pkl``,
-    ``best_weights.pkl``, ``optimizer_states.pt``, ``train_info.json`` and
-    ``metrics.jsonl``. Batches and augmentation draw from
-    ``np.random.RandomState(seed)`` (the JAX package's batches); dropout
-    from generators seeded from ``seed``, the device's default one (which
-    ``nn.LSTM`` uses) forked so the caller's state is left as it was.
+    it. ``optimizer(params, lr) -> torch.optim.Optimizer`` makes the
+    optimizer over the tree's tensors (default ``torch.optim.Adam``); the
+    plateau scales its learning rate; a saved optimizer state resumes only
+    into an optimizer of the same structure. Checkpoints in ``save_dir``:
+    ``weights.pkl``, ``best_weights.pkl``, ``optimizer_states.pt``,
+    ``train_info.json`` and ``metrics.jsonl``. Batches and augmentation
+    draw from ``np.random.RandomState(seed)`` (the JAX package's batches);
+    dropout from generators seeded from ``seed``, the device's default one
+    (which ``nn.LSTM`` uses) forked so the caller's state is left as it
+    was.
 
     ``mesh`` makes the step data parallel over its ranks on its device
     (``device`` is then unused): every rank draws the same global batches,
@@ -197,7 +211,8 @@ def train(params, forward_fn: Callable, loss_fn: Callable,
         return _train(
             params, forward_fn, loss_fn, train_dataset, valid_dataset,
             save_dir, dev=dev, generator=generator, eval_fn=eval_fn,
-            learning_rate=learning_rate, num_epoch=num_epoch,
+            optimizer=optimizer, learning_rate=learning_rate,
+            num_epoch=num_epoch,
             batch_size=batch_size, valid_batch_size=valid_batch_size,
             num_iter_between_vald=num_iter_between_vald,
             early_stop_threshold=early_stop_threshold,
@@ -217,8 +232,8 @@ def _rank_seed(seed: int, rank: int) -> int:
 
 
 def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
-           save_dir, *, dev, generator, eval_fn, learning_rate, num_epoch,
-           batch_size, valid_batch_size, num_iter_between_vald,
+           save_dir, *, dev, generator, eval_fn, optimizer, learning_rate,
+           num_epoch, batch_size, valid_batch_size, num_iter_between_vald,
            early_stop_threshold, clip_grad_norm, load_last_states,
            lr_scheduler_patience, lr_scheduler_factor, seed, log_metrics,
            epoch_hook, mesh):
@@ -236,7 +251,7 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
     params = tree_map(lambda t: t.detach().to(dev, torch.float32, copy=True)
                       .requires_grad_(), params)
     leaves = _tensor_leaves(params)
-    opt = torch.optim.Adam(leaves, lr=learning_rate)
+    opt = (optimizer or torch.optim.Adam)(leaves, learning_rate)
     lr_scale = 1.0
     train_info = {"epoch": 0, "it": 0, "total_it": 0, "min_vald_loss": 1e9,
                   "lr_scale": 1.0}
@@ -259,7 +274,7 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
         lr_scale = train_info.get("lr_scale", 1.0)
         if os.path.exists(opt_file):
             state = torch.load(opt_file, map_location=dev, weights_only=True)
-            if _state_fits(state, leaves):
+            if _state_fits(state, opt, leaves):
                 opt.load_state_dict(state)
             else:
                 log("optimizer config changed; reinitializing opt state")
@@ -270,8 +285,9 @@ def _train(params, forward_fn, loss_fn, train_dataset, valid_dataset,
             (train_info["epoch"], train_info["it"], train_info["total_it"]))
 
     def set_lr():
-        # ReduceLROnPlateau as JAX folds it in: Adam's update scaled by
-        # lr_scale is Adam's update at learning_rate * lr_scale
+        # ReduceLROnPlateau as JAX folds it in: an update scaled by
+        # lr_scale is the update at learning_rate * lr_scale (for Adam and
+        # SGD, whose updates are linear in the learning rate)
         for group in opt.param_groups:
             group["lr"] = learning_rate * lr_scale
 

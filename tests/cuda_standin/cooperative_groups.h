@@ -1,5 +1,5 @@
-// Host stand-in of cooperative_groups.h: a grid barrier is a std::barrier
-// over every thread of the launch.
+// Host stand-in of cooperative_groups.h: a grid barrier is a barrier over
+// every thread of the launch.
 #pragma once
 #include "cuda_runtime.h"
 namespace cooperative_groups {

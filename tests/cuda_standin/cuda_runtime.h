@@ -1,17 +1,20 @@
 // Host stand-in of the CUDA runtime for a g++ build of a kernel: a launch
-// runs every CUDA thread of the grid as a pthread, with std::barriers for
-// __syncthreads and a per-warp exchange for the shuffles.
+// runs every CUDA thread of the grid, with barriers for __syncthreads and
+// grid.sync and a per-warp exchange for the shuffles. Each CUDA thread is a
+// fiber with its own stack, all of them on the launching thread, switched
+// round robin wherever one waits (a barrier, an mbarrier): the run takes one
+// core however many threads the grid has. x86-64 only (the stack switch).
 #pragma once
+#if !defined(__x86_64__)
+#error "the CUDA stand-in switches stacks in x86-64 assembly"
+#endif
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
-#include <pthread.h>
-#include <atomic>
-#include <barrier>
+#include <sys/mman.h>
 #include <cstdlib>
 #include <functional>
 #include <memory>
-#include <thread>
 #include <type_traits>
 #include <vector>
 #include <initializer_list>
@@ -34,9 +37,52 @@ struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 
-struct SiBlock { std::barrier<> bar; std::vector<unsigned char> smem; SiBlock(int n, size_t s) : bar(n), smem(s + 256) {} };
-struct SiWarp { std::barrier<> bar{32}; uint32_t buf[32]; };
-struct SiGrid { std::barrier<> bar; SiGrid(int n) : bar(n) {} };
+// si_fiber_switch(save, next): push the callee-saved registers, store the
+// stack pointer in *save, continue on the stack `next` (SysV x86-64).
+extern "C" void si_fiber_switch(void** save, void* next);
+asm(R"(
+  .text
+  .p2align 4
+  .hidden si_fiber_switch
+  .type si_fiber_switch, @function
+si_fiber_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size si_fiber_switch, .-si_fiber_switch
+)");
+// the launching thread's stack while a fiber runs, and the running fiber's
+inline thread_local void* si_main_sp;
+inline thread_local void** si_fiber_sp;
+// a waiting fiber hands the thread back to the launch's round robin
+inline void si_yield() { si_fiber_switch(si_fiber_sp, si_main_sp); }
+// all fibers run on one thread, so a barrier is a count and a generation
+struct SiBarrier {
+  int n, count = 0;
+  unsigned gen = 0;
+  explicit SiBarrier(int n_) : n(n_) {}
+  void arrive_and_wait() {
+    const unsigned g = gen;
+    if (++count == n) { count = 0; ++gen; return; }
+    while (gen == g) si_yield();
+  }
+};
+
+struct SiBlock { SiBarrier bar; std::vector<unsigned char> smem; SiBlock(int n, size_t s) : bar(n), smem(s + 256) {} };
+struct SiWarp { SiBarrier bar{32}; uint32_t buf[32]; };
+struct SiGrid { SiBarrier bar; SiGrid(int n) : bar(n) {} };
 
 inline thread_local uint3s threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
@@ -98,14 +144,62 @@ template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F*) 
 template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int, size_t) { *n = 1; return 0; }
 
 struct SiStart { std::function<void()>* fn; SiGrid* grid; SiBlock* block; SiWarp* warp; unsigned b, t, nb, nt; };
-inline void* si_thread(void* p) {
-  SiStart* s = (SiStart*)p;
+// the CUDA thread s's view of the launch, in this OS thread's variables
+inline void si_enter(const SiStart* s) {
   threadIdx = {s->t, 0, 0}; blockIdx = {s->b, 0, 0};
   blockDim = dim3(s->nt); gridDim = dim3(s->nb);
   si_grid = s->grid; si_block = s->block; si_warp = s->warp;
   si_smem = (unsigned char*)(((uintptr_t)s->block->smem.data() + 127) & ~(uintptr_t)127);
-  (*s->fn)();
-  return nullptr;
+}
+constexpr size_t kSiStack = 512 * 1024;
+struct SiFiber { void* sp; bool done; };
+inline thread_local SiFiber* si_fiber;
+inline thread_local const SiStart* si_fiber_start;
+// a fiber's first frame: run the kernel, then leave for good
+[[noreturn]] inline void si_fiber_main() {
+  (*si_fiber_start->fn)();
+  si_fiber->done = true;
+  si_yield();
+  abort();
+}
+// launches so far: each launch starts its passes in the other direction
+inline unsigned si_launches;
+// every CUDA thread of the launch as a fiber, resumed in passes over them
+// until all have returned; the passes alternate between ascending and
+// descending thread order, and so does the first pass of each launch, so
+// that over two launches every stretch between barriers runs once with a
+// reader before its writer, whichever of the two threads comes first
+inline cudaError_t si_run(std::vector<SiStart>& st) {
+  const size_t n = st.size();
+  char* stacks = (char*)mmap(nullptr, n * kSiStack, PROT_READ | PROT_WRITE,
+                             MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  if (stacks == MAP_FAILED) abort();
+  std::vector<SiFiber> fib(n);
+  for (size_t i = 0; i < n; ++i) {
+    // a frame that si_fiber_switch's pops and ret enter si_fiber_main from,
+    // with the stack aligned as after a call
+    void** top = (void**)(stacks + (i + 1) * kSiStack);
+    *--top = nullptr;
+    *--top = (void*)&si_fiber_main;
+    for (int r = 0; r < 6; ++r) *--top = nullptr;
+    fib[i] = SiFiber{top, false};
+  }
+  void** save_main = &si_main_sp;
+  const unsigned first = si_launches++ & 1;
+  for (size_t left = n, pass = 0; left; ++pass) {
+    for (size_t k = 0; k < n; ++k) {
+      const size_t i = (pass ^ first) & 1 ? n - 1 - k : k;
+      if (fib[i].done) continue;
+      si_enter(&st[i]);
+      si_fiber = &fib[i];
+      si_fiber_start = &st[i];
+      si_fiber_sp = &fib[i].sp;
+      si_fiber_switch(save_main, fib[i].sp);
+      if (fib[i].done) --left;
+    }
+  }
+  munmap(stacks, n * kSiStack);
+  return 0;
 }
 template <class A>
 cudaError_t cudaLaunchCooperativeKernel(void (*f)(A), dim3 g, dim3 b, void** args, size_t smem, cudaStream_t);
@@ -126,12 +220,7 @@ cudaError_t cudaLaunchCooperativeKernel(void (*f)(A), dim3 g, dim3 b, void** arg
   for (unsigned i = 0; i < nb; ++i) blocks.emplace_back(new SiBlock(nt, smem));
   for (unsigned i = 0; i < nb * nt / 32; ++i) warps.emplace_back(new SiWarp);
   std::vector<SiStart> st(nb * nt);
-  std::vector<pthread_t> th(nb * nt);
-  pthread_attr_t at; pthread_attr_init(&at); pthread_attr_setstacksize(&at, 512 * 1024);
-  for (unsigned i = 0; i < nb * nt; ++i) {
+  for (unsigned i = 0; i < nb * nt; ++i)
     st[i] = SiStart{&fn, &grid, blocks[i / nt].get(), warps[i / 32].get(), i / nt, i % nt, nb, nt};
-    if (pthread_create(&th[i], &at, si_thread, &st[i]) != 0) abort();
-  }
-  for (auto& t : th) pthread_join(t, nullptr);
-  return 0;
+  return si_run(st);
 }

@@ -1,14 +1,13 @@
 // Host stand-in of csrc/serve_async.cuh, for the g++ builds of the kernels
 // (tests/test_torch_*_standin.py): a bulk copy is a memcpy that lowers its
 // mbarrier's pending byte count, mbar_expect_tx raises it, the barrier's
-// phase flips when the count is back at zero, and mbar_wait spins on the
-// phase; the L2 prefetch does nothing. The same functions as the real header, with the same
+// phase flips when the count is back at zero, and mbar_wait yields to the
+// other CUDA threads until the phase flips; the L2 prefetch does nothing. The same functions as the real header, with the same
 // alignment rules.
 #pragma once
 #include <atomic>
 #include <chrono>
 #include <new>
-#include <thread>
 
 #include "cuda_runtime.h"
 
@@ -39,7 +38,7 @@ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   SBar* b = reinterpret_cast<SBar*>(bar);
   while ((b->phase.load(std::memory_order_acquire) & 1) == parity)
-    std::this_thread::yield();
+    si_yield();
 }
 
 inline void fence_async_smem() {}

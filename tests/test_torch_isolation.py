@@ -34,7 +34,8 @@ def _submodules():
 # the data-parallel step and loop on a one-rank mesh, and the corpus
 # drivers on raw fixture trees; then live capture: calibration and the
 # IMU-camera combiner on the native datapath, and the IMU bridge playing a
-# synthetic source over UDP.
+# synthetic source over UDP; then the dynamics, the overlay and Unity export
+# of a fixture view, and the facade's renderer.
 _DRIVE = """
 import torch
 from robustcap_tpu_torch.config import SigMPConfig
@@ -186,6 +187,22 @@ with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as rx:
             stream.push(i, t, qs[i], accs[i])
 _, R_CB, acc_C = stream.tick()
 assert R_CB.shape == (6, 3, 3) and np.isfinite(acc_C).all()
+from robustcap_tpu_torch import compat as art
+from robustcap_tpu_torch.dynamics import RigidBodyDynamics
+from robustcap_tpu_torch.eval import view_aist, view_aist_unity
+dyn = RigidBodyDynamics(model)
+zero = torch.zeros(dyn.num_q)
+assert abs(float(dyn.forward_dynamics(zero, zero, zero)[1]) + 9.81) < 0.5
+ds = build_fixture_dataset(model, n_seq=1, T=4, n_cam=1, seed=3)
+frames = view_aist(run_smplify=False, params=p, model=model, dataset=ds,
+                   max_frames=1)
+assert frames[0].shape == (1080, 1920, 3)
+with tempfile.TemporaryDirectory() as d:
+    view_aist_unity(params=p, model=model, dataset=ds, out_dir=d)
+    assert os.path.exists(d + "/pose.txt")
+assert art.Renderer(resolution=(8, 8), model=model).render(
+    None, model._v_template + torch.tensor([0, 0, 3.0]),
+    np.eye(3)).shape == (8, 8, 3)
 """
 
 
@@ -238,7 +255,10 @@ def test_no_jax_import_in_sources():
                  "sensors/__init__.py", "sensors/xdc_codec.py",
                  "sensors/xsens.py", "sensors/mvnx.py", "sensors/noitom.py",
                  "sensors/calibration.py", "sensors/capture.py",
-                 "sensors/bridge.py"):
+                 "sensors/bridge.py", "dynamics/__init__.py",
+                 "dynamics/rigid_body.py", "viz/__init__.py",
+                 "viz/keypoints.py", "viz/render.py", "viz/viewers.py",
+                 "eval/visualize.py", "compat.py"):
         assert os.path.join(PKG, name) in files, name
     for path in files:
         for mod in _imports(path):
@@ -406,24 +426,19 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
             lambda: LowPassFilterRotation()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    from robustcap_tpu_torch.compat import ParametricModel as ArtModel
+    from robustcap_tpu_torch.eval import view_aist, view_aist_unity
+    from robustcap_tpu_torch.viz import BulletMotionViewer, Renderer
+    for call in (
+            lambda: Renderer(resolution=(8, 8)),
+            lambda: BulletMotionViewer(),
+            lambda: view_aist(params=params, dataset=corpus),
+            lambda: view_aist_unity(params=params, dataset=corpus),
+            lambda: ArtModel(data=data)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
-# Public top-level names of the JAX package still without a counterpart in
-# the port, by JAX module (``None``: the whole module). Every one belongs to
-# a later slice: dynamics (A13c), display (A13d: ``viz/``,
-# ``eval/visualize.py`` and its re-exports), the ``articulate``-shaped
-# facade (A13e).
-_WAITING = {
-    "dynamics/__init__.py": None,
-    "dynamics/rigid_body.py": None,
-    "viz/__init__.py": None,
-    "viz/keypoints.py": None,
-    "viz/render.py": None,
-    "viz/viewers.py": None,
-    "eval/visualize.py": None,
-    "eval/__init__.py": {"run_single_view", "view_aist", "view_aist_unity"},
-    "compat.py": None,
-}
 # Names the port holds under another module or name by design: the Pallas
 # kernels' modules map to the CUDA kernels' wrappers (``PERF.md`` section 6),
 # checkpoint conversion lives in ``convert.py`` (it imports the model), and
@@ -482,11 +497,6 @@ def test_port_holds_every_public_name_of_the_jax_package():
             if not name.endswith(".py"):
                 continue
             rel = os.path.relpath(os.path.join(dirpath, name), jax_root)
-            waiting = _WAITING.get(rel, set())
-            if waiting is None:
-                assert not os.path.exists(os.path.join(PKG, rel)), \
-                    f"{rel} is ported: take it off the waiting list"
-                continue
             moved = _COUNTERPARTS.get(rel, {})
             for other in moved.values():
                 mod, attr = other.rsplit(".", 1)
@@ -499,11 +509,8 @@ def test_port_holds_every_public_name_of_the_jax_package():
                     if os.path.exists(os.path.join(PKG, rel)) else None)
             for n in sorted(_public_names(os.path.join(dirpath, name))):
                 checked += 1
-                if n in waiting:
-                    assert port is None or not hasattr(port, n), \
-                        f"{rel}: {n} is ported: take it off the list"
-                elif n not in moved and (port is None
-                                         or not hasattr(port, n)):
+                if n not in moved and (port is None
+                                       or not hasattr(port, n)):
                     missing.setdefault(rel, []).append(n)
     assert checked > 300
     assert not missing, missing

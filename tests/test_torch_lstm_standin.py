@@ -2,7 +2,7 @@ r"""The LSTM-scan kernel's own source, ``csrc/lstm_scan.cu``, run on the host.
 
 g++ builds it against the stand-in headers of ``tests/cuda_standin/``: a
 cooperative launch runs every CUDA thread of the grid (3 blocks of 512) as a
-pthread, ``grid.sync`` is a ``std::barrier`` over all of them, and the
+fiber, ``grid.sync`` is a barrier over all of them, and the
 stand-in ``serve_async.cuh`` turns the bulk copies of the resident weights
 into ``memcpy`` calls that complete their mbarrier. ``lstm_scan._launch``
 drives that build on CPU tensors as it drives the kernel on the card, with

@@ -2,7 +2,7 @@ r"""The serve kernel's own source, ``csrc/serve_scan.cu``, run on the host.
 
 g++ builds it against the stand-in headers of ``tests/cuda_standin/``: a
 cooperative launch runs every CUDA thread of the grid (3 blocks of 512) as a
-pthread, and the stand-in ``serve_async.cuh`` turns a bulk copy into a
+fiber, and the stand-in ``serve_async.cuh`` turns a bulk copy into a
 ``memcpy`` that completes its mbarrier. ``serve_scan._launch`` drives that
 build on CPU tensors as it drives the kernel on the card, and the result is
 held against ``serve_scan_plain`` in each weight mode: on a mixed chunk

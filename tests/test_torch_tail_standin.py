@@ -2,7 +2,7 @@ r"""The geometry-tail kernel's own source, ``csrc/geometry_tail.cu`` with the
 body ``csrc/tail_block.cuh``, run on the host.
 
 g++ builds it against the stand-in headers of ``tests/cuda_standin/``: the
-launch runs the kernel's 512 threads as pthreads, and the stand-in
+launch runs the kernel's 512 threads as fibers, and the stand-in
 ``serve_async.cuh`` turns the bulk copies of the body-model constants and
 the posedirs rows into ``memcpy`` calls that complete their mbarriers. ``geometry_tail._launch`` drives
 that build on CPU tensors as it drives the kernel on the card, frame after

@@ -150,6 +150,44 @@ def test_resume_skips_the_iterations_done(tmp_path, capsys):
     assert os.path.exists(tmp_path / "optimizer_states.pt")
 
 
+def test_optimizer_factory_matches_jax(tmp_path, capsys):
+    r"""``train(optimizer=)``: SGD from a factory against JAX's loop with
+    ``optax.sgd`` (same init, clip 1.0, lr 1e-1, one epoch, a validation
+    after every step), each loss within ``LOSS_RTOL``; then a resume with
+    SGD adopts the saved state, and one with the default Adam does not."""
+    import optax
+    from robustcap_tpu.train import data as jdata
+    from robustcap_tpu.train import losses as jlosses
+    data, label = _toy_data()
+    kw = dict(num_epoch=1, batch_size=4, learning_rate=1e-1,
+              clip_grad_norm=1.0, num_iter_between_vald=1)
+    jloop.train(jax.tree.map(jax.numpy.asarray, _toy_params()),
+                jtrainers.make_forward_fn(0.0), jlosses.masked_mse,
+                jdata.SeqDataset(data, label, split_size=10),
+                jdata.SeqDataset(data, label, split_size=10),
+                str(tmp_path / "jax"), optimizer=optax.sgd, **kw)
+    made = []
+
+    def sgd(params, lr):
+        made.append(torch.optim.SGD(params, lr))
+        return made[-1]
+
+    _port_train(tmp_path / "port", optimizer=sgd, **kw)
+    assert len(made) == 1 and made[0].param_groups[0]["lr"] == 1e-1
+    jrec = _records(tmp_path / "jax" / "metrics.jsonl")
+    trec = _records(tmp_path / "port" / "metrics.jsonl")
+    assert len(jrec) == len(trec) == 4
+    for a, b in zip(jrec, trec):
+        for key in ("train_loss", "vald_loss"):
+            np.testing.assert_allclose(b[key], a[key], rtol=LOSS_RTOL)
+    capsys.readouterr()
+    _port_train(tmp_path / "port", 2, optimizer=sgd)
+    assert "reinitializing" not in capsys.readouterr().out
+    _port_train(tmp_path / "port", 3)
+    assert "optimizer config changed; reinitializing opt state" in \
+        capsys.readouterr().out
+
+
 def test_plateau_not_triggered_while_improving(tmp_path):
     r"""``TestLoopFixes.test_plateau_not_triggered_while_improving``: the
     plateau scale steps per validation."""
