@@ -15,9 +15,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
    yardstick; one more launch with the kernel's timestamp buffer, printed
    as the in-launch split (pre-pass, steps with their barrier waits,
    linear2) and the grid barriers a launch runs;
-3. the geometry-tail kernel against its plain version over 320 frames that
-   cover every regime (confidence bands, ring append and snap, live
-   throttle, no landmarks, pose blendshapes on and off), timed per launch;
+3. the geometry-tail kernel (the operator ``robustcap::geometry_tail``)
+   against its plain version over 320 frames one at a time that cover
+   every regime (confidence bands, ring append and snap, live throttle, no
+   landmarks, pose blendshapes on and off); then its batched launch, one
+   block a row, at B = 1, 8 and 64 against ``tail_batched`` on the card,
+   each launch's rows in several regimes (a first frame, a valid first
+   translation, ring appends and snaps, the live recompute), and each B's
+   device time a launch in a CUDA graph beside the plain version's;
 4. the main path at full width (``RNN_SPECS``, a 6890-vertex procedural
    body, random weights from a seed): ``StreamingNet`` with
    ``SigMPConfig(pallas_inertial=True, pallas_tail=True)`` over a first
@@ -67,10 +72,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
    its launches counted into the kernel line); ``forward_online`` over 256
    frames replayed through a CUDA graph against the eager exported step
    (within ``GRAPH_BOUND``), timed beside the eager ``StreamingNet``; the f32
-   bundle against the plain ``StreamingNet`` within phase 4's bounds; the
-   multiplexer at capacity 8 for 128 ticks, one slot reset at tick 64, each
-   row against its own plain ``StreamingNet`` within phase 4's bounds, and
-   its tick timed graphed and eager at capacity 8 and 64; the latency
+   bundle against the plain ``StreamingNet`` within phase 4's bounds; an f32
+   bundle exported with ``pallas_tail`` (the tail operator in its step
+   program), its graphed ``forward_online`` against the eager exported step
+   and against ``StreamingNet(pallas_tail)`` within phase 4's bounds, the
+   tail launches a graphed frame and a step-loop chunk's counted by
+   ``torch.profiler``, and its step program run in a fresh process that
+   imports only ``robustcap_tpu_torch`` (``--bundle-child``), equal bit for
+   bit; the multiplexer at capacity 8 for 128 ticks, one slot reset at tick
+   64, and with ``pallas_tail`` (two batched tail launches a tick) for 48
+   ticks, reset at 24, each row against its own plain ``StreamingNet``
+   within phase 4's bounds, and its tick timed graphed and eager at
+   capacity 8 and 64; the latency
    harness over 600 frames with ``live_mode()`` and the tail kernel (its
    launches counted) and with the kernels off; the live server over
    loopback with the f32 bundle, 120 detector packets of a fixture
@@ -458,39 +471,139 @@ def check_tail(models, dev, gen):
              f"tail regimes not all reached: append {appended}, snap "
              f"{snapped}, live recompute {live_fk}")
 
+    batched = _check_tail_batched(consts, cfgs, dev, gen)
     a = _tail_case(2, gen, dev)
     cfg = SigMPConfig()
-    ms = _time_graph_ms(lambda: geometry_tail(consts[1], cfg, **a), reps=100)
-    ms_nobs = _time_graph_ms(lambda: geometry_tail(consts[0], cfg, **a),
-                             reps=100)
-    plain_ms = _time_graph_ms(lambda: tail_plain(consts[1], cfg, **a),
-                              reps=20)
+    # one frame with host flags: the flags are filled on the card, and the
+    # call makes no synchronizing call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        geometry_tail(consts[1], cfg, **a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     call_ms = _time_ms(lambda: geometry_tail(consts[1], cfg, **a), reps=200)
     plain_call_ms = _time_ms(lambda: tail_plain(consts[1], cfg, **a),
                              reps=20)
-    # bytes: every input and constant read once, every output written once
-    # (blendshape on); operations: ~8K for rotations, IK, FK and
-    # translation, 33 landmarks x (24 x 24 LBS + 3 x 207 x 2 blendshape)
-    tensors = [a["out7"], a["out8"], a["Rcr"], a["vr"], a["pc"], a["c"],
-               a["k_lerp"], *a["carry"].values(), a["frame"]["first_tran"],
-               a["frame"]["gravityc"]]
-    tensors += [consts[1][k] for k in ("parent", "bone", "j0", "wsub",
-                                       "v0sub", "pd")]
-    out = geometry_tail(consts[1], cfg, **a)
-    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
-        t.numel() * t.element_size() for t in out.values())
-    n_flops = 8000 + 33 * (24 * 24 + 3 * 207 * 2)
-    bound, by = _bound_ms(n_bytes, n_flops)
-    print(f"[geometry_tail] {frames} frames, every field within "
-          f"{TAIL_BOUND:.0e} (max {err:.3e}); ring appends {appended}, "
-          f"snaps {snapped}, live recomputes {live_fk}; device time in a "
-          f"CUDA graph: kernel {ms * 1e3:.2f} us/launch with blendshapes, "
-          f"{ms_nobs * 1e3:.2f} us without, plain {plain_ms * 1e3:.1f} us; "
-          f"per call issued from Python: kernel {call_ms * 1e3:.1f} us, "
-          f"plain {plain_call_ms * 1e3:.1f} us; "
-          f"bound {bound * 1e3:.4f} us ({by}, {n_bytes} bytes)", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound, bound_by=by)
+    print(f"[geometry_tail] {frames} frames one at a time, every field "
+          f"within {TAIL_BOUND:.0e} (max {err:.3e}); ring appends "
+          f"{appended}, snaps {snapped}, live recomputes {live_fk}; a frame "
+          "with host flags makes no synchronizing call; per call "
+          f"issued from Python: kernel {call_ms * 1e3:.1f} us, plain "
+          f"{plain_call_ms * 1e3:.1f} us", flush=True)
+    batched[1]["max_abs_err"] = max(batched[1]["max_abs_err"], err)
+    return batched
+
+
+TAIL_BATCHES = (1, 8, 64)
+
+
+def _tail_rows(cases, dev):
+    r"""One-frame cases (``_tail_case``) stacked as B rows, the frame
+    flags as ``[B]`` bool tensors on the card."""
+    import torch
+    out = {k: torch.stack([a[k] for a in cases])
+           for k in ("out7", "out8", "c", "Rcr", "vr", "pc", "k_lerp")}
+    out["carry"] = {k: torch.stack([a["carry"][k] for a in cases])
+                    for k in cases[0]["carry"]}
+    out["frame"] = {k: torch.stack([a["frame"][k] for a in cases])
+                    for k in ("first_tran", "gravityc")}
+    for k in ("first_frame", "first_tran_valid"):
+        out["frame"][k] = torch.tensor([a["frame"][k] for a in cases],
+                                       device=dev)
+    return out
+
+
+def _check_tail_batched(consts, cfgs, dev, gen):
+    r"""The batched launch (``geometry_tail_batched``, one block a row) at
+    B = 1, 8 and 64 against ``tail_batched`` on the card, every config with
+    blendshapes off and on; each launch's row 0 a first frame and row 1 a
+    valid first translation, the others in ``_tail_case``'s regimes. Then
+    each B's device time in a CUDA graph beside the plain version's, and
+    its bound. Returns the kernel-line numbers by B."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.ops.geometry_tail import (
+        _op_args, geometry_tail_batched, tail_batched)
+    res = {}
+    for B in TAIL_BATCHES:
+        err, n_rows, reached = 0.0, 0, dict(first=0, first_tran=0, append=0,
+                                             snap=0, live_fk=0)
+        for j in range(max(2, 16 // B) * len(cfgs) * 2):
+            cfg = cfgs[j % len(cfgs)]
+            k = (j // len(cfgs)) % 2
+            cases = [_tail_case(j * B + r, gen, dev) for r in range(B)]
+            cases[0]["frame"]["first_frame"] = j % 3 == 0
+            cases[min(1, B - 1)]["frame"]["first_tran_valid"] = j % 3 == 1
+            rows = _tail_rows(cases, dev)
+            got = geometry_tail_batched(consts[k], cfg, **rows)
+            want = tail_batched(consts[k], cfg, **rows)
+            for field, w in want.items():
+                g = got[field]
+                _require(g.shape == w.shape, f"batched tail B={B} {field}: "
+                         f"shape {g.shape} vs {w.shape}")
+                if w.dtype in (torch.int32, torch.int64):
+                    _require(bool((g == w).all()), f"batched tail B={B} "
+                             f"launch {j} {field}: {g} vs {w}")
+                else:
+                    e = _max_err(g, w)
+                    _require(e <= TAIL_BOUND, f"batched tail B={B} launch "
+                             f"{j} ({cfg}) {field}: {e:.3e} > "
+                             f"{TAIL_BOUND:.0e}")
+                    err = max(err, e)
+            n_rows += B
+            cnt0 = rows["carry"]["floor_cnt"]
+            cmax = torch.sigmoid(rows["out8"]).amax(-1)
+            reached["first"] += int(rows["frame"]["first_frame"].sum())
+            reached["first_tran"] += int(
+                rows["frame"]["first_tran_valid"].sum())
+            reached["append"] += int((got["floor_cnt"] > cnt0).sum())
+            if cfg.use_flat_floor:
+                reached["snap"] += int(((got["floor_cnt"] == 11) & (
+                    cmax > cfg.contact_threshold)).sum())
+            if cfg.live:
+                reached["live_fk"] += int(
+                    (rows["carry"]["vision_count"] == 0).sum())
+        _require(all(reached.values()), f"batched tail B={B}: regimes not "
+                 f"all reached: {reached}")
+
+        # device time of a launch in a CUDA graph (the rows' operands
+        # already on the card, so that the graph holds the kernel alone),
+        # blendshapes on, then off
+        cases = [_tail_case(r, gen, dev) for r in range(B)]
+        cases[0]["frame"]["first_frame"] = True
+        rows = _tail_rows(cases, dev)
+        cfg = SigMPConfig()
+        ms = _time_graph_ms(lambda: geometry_tail_batched(
+            consts[1], cfg, **rows), reps=100)
+        ms_nobs = _time_graph_ms(lambda: geometry_tail_batched(
+            consts[0], cfg, **rows), reps=100)
+        plain_ms = _time_graph_ms(lambda: tail_batched(consts[1], cfg,
+                                                       **rows), reps=20)
+        # bytes: every row's inputs and the shared constants read once
+        # (blendshapes on), every output written once; operations: ~8K a
+        # row for rotations, IK, FK and translation, and 33 landmarks x
+        # (24 x 24 LBS + 3 x 207 x 2 blendshape)
+        frame_ops, carry_ops = _op_args(consts[1], cfg, **rows)[:2]
+        tensors = frame_ops + carry_ops + [
+            consts[1][k] for k in ("parent", "bone", "j0", "wsub", "v0sub",
+                                   "pd")]
+        out = geometry_tail_batched(consts[1], cfg, **rows)
+        n_bytes = sum(t.numel() * t.element_size() for t in tensors) + sum(
+            t.numel() * t.element_size() for t in out.values())
+        n_flops = B * (8000 + 33 * (24 * 24 + 3 * 207 * 2))
+        bound, by = _bound_ms(n_bytes, n_flops)
+        print(f"[geometry_tail] batched B={B}: {n_rows} rows in "
+              f"{n_rows // B} launches, every field within "
+              f"{TAIL_BOUND:.0e} of tail_batched (max {err:.3e}), counters "
+              f"equal; rows reached {reached}; device time in a CUDA graph: "
+              f"kernel {ms * 1e3:.2f} us/launch with blendshapes, "
+              f"{ms_nobs * 1e3:.2f} us without, plain {plain_ms * 1e3:.1f} "
+              f"us; bound {bound * 1e3:.4f} us ({by}, {n_bytes} bytes)",
+              flush=True)
+        res[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      library_ms=None, bound_ms=bound, bound_by=by)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1572,6 +1685,7 @@ CHUNKS = (128, 256)
 GRAPH_BOUND = 1e-6    # a graph replays the same kernels on the same inputs
 STEP_FILE_MAX = 16 << 20   # step.pt2 holds the program, not the weights
 MUX_CAP, MUX_TICKS, MUX_RESET = 8, 128, (64, 3)   # reset slot 3 at tick 64
+MUX_TAIL_TICKS, MUX_TAIL_RESET = 48, (24, 3)     # the same with pallas_tail
 LIVE_FRAMES = 120
 
 
@@ -1586,10 +1700,11 @@ def _sync_time(fn):
 
 def _profile_top(fn, n, k=5):
     r"""``(kernels and copies, device ms summed, device ms busy, top k by
-    device time as (name, ms, calls))`` per call of ``fn`` over ``n``
-    calls (``torch.profiler``); "busy" is the union of the kernels' time
-    ranges, which overlap where work runs on several streams. ``None``
-    where the profiler records no device time."""
+    device time as (name, ms, calls), {name: calls})`` per call of ``fn``
+    over ``n`` calls (``torch.profiler``; a CUDA graph's replayed kernels
+    included); "busy" is the union of the kernels' time ranges, which
+    overlap where work runs on several streams. ``None`` where the
+    profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1623,21 +1738,31 @@ def _profile_top(fn, n, k=5):
     top = sorted(events, key=dev_us, reverse=True)[:k]
     return (sum(e.count for e in events) / n, summed, busy / 1e3 / n,
             [(e.key[:56], round(dev_us(e) / 1e3 / n, 3), e.count // n)
-             for e in top])
+             for e in top], {e.key: e.count / n for e in events})
 
 
 def _device_busy(fn, n):
-    r"""``(kernels, device ms)`` per call of ``fn`` over ``n`` calls, from
-    ``torch.profiler``'s device-side events (each kernel and copy once,
-    summed), or ``None`` where the profiler records no device time."""
+    r"""``(kernels, device ms, {kernel name: calls})`` per call of ``fn``
+    over ``n`` calls, from ``torch.profiler``'s device-side events (each
+    kernel and copy once, summed), or ``None`` where the profiler records
+    no device time."""
     prof = _profile_top(fn, n)
-    return None if prof is None else prof[:2]
+    return None if prof is None else (prof[0], prof[1], prof[4])
+
+
+def _tail_calls(prof, what):
+    r"""Tail kernels a call in a :func:`_device_busy` profile; a profile
+    with no device events fails."""
+    _require(prof is not None, f"{what}: torch.profiler recorded no device "
+             "event, so the tail kernels were not counted")
+    return sum(c for name, c in prof[2].items()
+               if "geometry_tail_kernel" in name)
 
 
 def _busy_text(prof, host_ms):
     if prof is None:
         return "device time not measured (no device events)"
-    n, busy = prof
+    n, busy = prof[:2]
     return (f"{n:.0f} kernels and copies, {busy:.3f} ms of device time a "
             f"call (torch.profiler): device idle "
             f"{max(0.0, 1 - busy / host_ms) * 100:.1f}%")
@@ -1707,7 +1832,8 @@ def _bundle_online(mode, bundle, p, cfg, model, dev, seq):
     r"""Phase 8 (c): ``forward_online`` over the sequence, graphed, against
     the eager exported step; the three ways timed (host clock,
     synchronized, the frames after the first). Returns the graphed
-    outputs."""
+    outputs, the eager ``StreamingNet``'s (with ``cfg``) and the graphed
+    frame's profile (:func:`_device_busy`)."""
     import torch
     from robustcap_tpu_torch.device import tree_map
     from robustcap_tpu_torch.models import sig_mp
@@ -1757,30 +1883,40 @@ def _bundle_online(mode, bundle, p, cfg, model, dev, seq):
               prof, res["graphed step"][1] / T * 1e3), flush=True)
     _require(gap <= GRAPH_BOUND, f"{mode} bundle: graphed and eager steps "
              f"differ by {gap:.3e}")
-    return res["graphed step"][0]
+    return res["graphed step"][0], res["eager StreamingNet"][0], prof
 
 
-def _check_multiplexer(params, model, dev):
-    r"""Phase 8 (d): capacity 8 for 128 ticks over 8 mixed streams, slot 3
-    reset at tick 64 with a new first frame, each row held against its own
-    plain ``StreamingNet``; ms per tick, eager and graphed, at capacity 8
-    and 64."""
+def _check_multiplexer(params, model, dev, cfg, ticks=MUX_TICKS,
+                       reset=MUX_RESET):
+    r"""Phase 8 (d): capacity 8 for ``ticks`` ticks over 8 mixed streams,
+    slot ``reset[1]`` reset at tick ``reset[0]`` with a new first frame,
+    each row held against its own plain ``StreamingNet``; ms per tick,
+    eager and graphed, at capacity 8 and 64. The tail kernels a graphed
+    tick, from ``torch.profiler``: 2 with ``cfg.pallas_tail``, else 0.
+    Returns ``{capacity: (tail launches, replayed tail kernels)}``: the
+    wrapper's count (eager steps and a capture's warm-up run; a capture
+    launches nothing) and the ticks replayed times the tail kernels a
+    replayed tick."""
     import torch
     from robustcap_tpu_torch.config import SigMPConfig
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.nn.rnn import prepare_scan_params
+    from robustcap_tpu_torch.ops import geometry_tail
     from robustcap_tpu_torch.streaming import StreamingMultiplexer
-    cfg = SigMPConfig()
-    tick_r, slot_r = MUX_RESET
-    streams = [_stream_inputs(30 + k, _mixed(MUX_TICKS, 30 + k))
+    what = "multiplexer" + (" (pallas_tail)" if cfg.pallas_tail else "")
+    tick_r, slot_r = reset
+    launches = {}
+    per_tick = 2 if cfg.pallas_tail else 0
+    geometry_tail.LAUNCHES = 0
+    streams = [_stream_inputs(30 + k, _mixed(ticks, 30 + k))
                for k in range(MUX_CAP)]
-    late = _stream_inputs(40, _mixed(MUX_TICKS - tick_r, 40))
+    late = _stream_inputs(40, _mixed(ticks - tick_r, 40))
     mux = StreamingMultiplexer(params, model, cfg, capacity=MUX_CAP,
                                device=dev)
     _require([mux.open_slot() for _ in range(MUX_CAP)]
              == list(range(MUX_CAP)), "multiplexer slots out of order")
     poses, trans = [], []
-    for t in range(MUX_TICKS):
+    for t in range(ticks):
         rows = [s if not (k == slot_r and t >= tick_r) else None
                 for k, s in enumerate(streams)]
         first = np.zeros(MUX_CAP, bool)
@@ -1801,20 +1937,22 @@ def _check_multiplexer(params, model, dev):
     refs = [(k, 0, s) for k, s in enumerate(streams)] + [(slot_r, tick_r,
                                                           late)]
     for k, t0, (j2, ac, orc) in refs:
-        t1 = tick_r if (k == slot_r and t0 == 0) else MUX_TICKS
-        net = sig_mp.StreamingNet(params, model, cfg, device=dev)
+        t1 = tick_r if (k == slot_r and t0 == 0) else ticks
+        net = sig_mp.StreamingNet(params, model, SigMPConfig(), device=dev)
         outs = [net.forward_online(j2[t], ac[t], orc[t], first_frame=t == 0)
                 for t in range(t1 - t0)]
         ref = tuple(torch.stack(x).cpu() for x in zip(*outs))
         got = (torch.from_numpy(poses[t0:t1, k]),
                torch.from_numpy(trans[t0:t1, k]))
-        ok &= _compare(f"multiplexer row {k}, ticks {t0}-{t1 - 1}, vs plain "
+        ok &= _compare(f"{what} row {k}, ticks {t0}-{t1 - 1}, vs plain "
                        "StreamingNet (card)", got, ref)
-    _require(ok, "multiplexer rows outside their bounds")
+    _require(ok, f"{what} rows outside their bounds")
 
     sp = prepare_scan_params(params, cfg.int8_compute)
     step = sig_mp.make_batched_step(model, cfg)
     for cap in (MUX_CAP, 64):
+        if cap != MUX_CAP:
+            geometry_tail.LAUNCHES = 0
         m = StreamingMultiplexer(params, model, cfg, capacity=cap, device=dev)
         ins = [_stream_inputs(50 + k, _mixed(9, 50 + k)) for k in range(cap)]
         batch = [lambda t, i=i: np.stack([s[i][t] for s in ins])
@@ -1824,6 +1962,10 @@ def _check_multiplexer(params, model, dev):
         _, g_sec = _sync_time(lambda: [m.step(*(b(t) for b in batch))
                                        for t in range(2, 9)])
         prof = _device_busy(lambda: m.step(*(b(8) for b in batch)), 8)
+        tails = _tail_calls(prof, f"{what} capacity {cap}, graphed tick")
+        _require(tails == per_tick, f"{what} capacity {cap}: {tails} tail "
+                 f"kernels a graphed tick (of {prof[0]} kernels and copies),"
+                 f" expected {per_tick}")
         frames = {k: v.to(dev) for k, v in {
             "j2dc": torch.from_numpy(batch[0](2)),
             "accc": torch.from_numpy(batch[1](2)),
@@ -1837,11 +1979,116 @@ def _check_multiplexer(params, model, dev):
         step(sp, carry, frames)
         _, e_sec = _sync_time(lambda: [step(sp, carry, frames)
                                        for _ in range(7)])
-        print(f"[serving] multiplexer capacity {cap}: graphed tick "
+        replays = m._tick.replays + (mux._tick.replays if cap == MUX_CAP
+                                     else 0)
+        launches[cap] = (geometry_tail.LAUNCHES, tails * replays)
+        print(f"[serving] {what} capacity {cap}: graphed tick "
               f"{g_sec / 7 * 1e3:.3f} ms (frames up, pose and tran back to "
               f"the host), eager step {e_sec / 7 * 1e3:.3f} ms (host clock, "
               "synchronized); graphed tick: "
-              + _busy_text(prof, g_sec / 7 * 1e3), flush=True)
+              + _busy_text(prof, g_sec / 7 * 1e3)
+              + f"; tail kernels a graphed tick {tails:g} (torch.profiler); "
+              f"{replays} ticks replayed, {geometry_tail.LAUNCHES} tail "
+              "launches issued (eager steps and capture warm-ups)",
+              flush=True)
+    return launches
+
+
+def _check_tail_bundle(params, model, dev, root, seq, chunk):
+    r"""Phase 8 (c), the tail kernel: an f32 bundle exported with
+    ``pallas_tail`` (its step program holds ``robustcap::geometry_tail``);
+    ``forward_online`` over the sequence graphed against the eager exported
+    step and against ``StreamingNet(pallas_tail)`` within phase 4's bounds;
+    the tail kernels from ``torch.profiler``: 2 a graphed frame, 2K in a
+    K-frame step-loop chunk; then the step program loaded and run on the
+    card in a fresh process that imports only ``robustcap_tpu_torch``,
+    equal bit for bit to the eager exported step here. Returns ``(tail
+    launches, replayed tail kernels)``: the wrapper's count (eager calls
+    and a capture's warm-up run; a capture launches nothing) and the
+    frames replayed times the tail kernels a replayed frame."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.device import tree_map
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.ops import geometry_tail
+    from robustcap_tpu_torch.serving import _online_frame
+    mode = "f32+pallas_tail"
+    cfg = SigMPConfig(pallas_tail=True)
+    geometry_tail.LAUNCHES = 0
+    bundle = _export_and_load(mode, params, cfg, model, dev, root)
+    _require(bundle.manifest["chunk_mode"] == "step_loop",
+             f"{mode} bundle: chunk mode {bundle.manifest['chunk_mode']}")
+
+    # the fresh process runs beside the checks below
+    j2, ac, orc = seq
+    args = (bundle.scan_params,
+            sig_mp.init_carry(bundle.params, batch_shape=(1,)),
+            tree_map(lambda t: t.to(dev), _online_frame(
+                j2[0], ac[0], orc[0], first_frame=True)))
+    files = [os.path.join(root, mode, "step.pt2")] + [
+        os.path.join(root, f"tail_{x}.pt") for x in ("args", "out")]
+    torch.save(args, files[1])
+    child = _start_child(["--bundle-child", *files, dev])
+    try:
+        graphed, streaming, prof = _bundle_online(mode, bundle, params,
+                                                  cfg, model, dev, seq)
+        _require(_compare(f"{mode} bundle, forward_online graphed vs "
+                          "StreamingNet(pallas_tail) (card)", graphed,
+                          streaming, (64, 128, 256)),
+                 f"{mode} bundle outside its bounds")
+        K = len(chunk[0])
+        per_frame = _tail_calls(prof, f"{mode} bundle, graphed frame")
+        chunk_prof = _device_busy(lambda: bundle.forward_chunk(*chunk), 1)
+        per_chunk = _tail_calls(chunk_prof, f"{mode} bundle, {K}-frame "
+                                "step-loop chunk")
+        _require(per_frame == 2 and per_chunk == 2 * K,
+                 f"{mode} bundle: {per_frame} tail kernels a graphed frame "
+                 f"(of {prof[0]} kernels and copies), expected 2; "
+                 f"{per_chunk} in the {K}-frame step-loop chunk (of "
+                 f"{chunk_prof[0]}), expected {2 * K}")
+        launches = geometry_tail.LAUNCHES
+        replayed = per_frame * bundle._online.replays
+        out, err = child.communicate(timeout=CHILD_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    _require(child.returncode == 0, f"{mode} bundle in a fresh process: rc "
+             f"{child.returncode}\n{out}\n{err[-4000:]}")
+    got = torch.load(files[2], map_location=dev)
+    want = bundle.step_fn(*args)
+    same = all(torch.equal(g, w) for g, w in zip(
+        torch.utils._pytree.tree_leaves(got),
+        torch.utils._pytree.tree_leaves(want), strict=True))
+    _require(same, f"{mode} bundle: the step run in a fresh process differs "
+             "from the step run here")
+    print(f"[serving] {mode} bundle: tail kernels a graphed frame "
+          f"{per_frame:g}, in a {K}-frame step-loop chunk {per_chunk:g} "
+          f"(torch.profiler); {bundle._online.replays} frames replayed; "
+          f"{launches} tail launches issued (eager calls and capture "
+          f"warm-ups); in a fresh process: {out.strip()}, equal bit for "
+          "bit", flush=True)
+    return launches, replayed
+
+
+def bundle_child(step_path, args_path, out_path, device):
+    r"""Phase 8 (c): load a step program that holds the tail operator in a
+    process that has imported only ``torch`` and ``robustcap_tpu_torch``
+    (whose import registers the operators), run it once on ``device`` on
+    the saved arguments and save its outputs."""
+    import torch
+    import robustcap_tpu_torch
+    step = torch.export.load(step_path).module()
+    args = torch.load(args_path, map_location=device)
+    torch.save(step(*args), out_path)
+    loaded = sorted(m for m in sys.modules if m.startswith("robustcap")
+                    or m == "jax" or m.startswith("jax."))
+    bad = [m for m in loaded if m.split(".")[0] in ("jax", "robustcap_tpu")
+           or m == "robustcap_tpu_torch.serving"]
+    _require(not bad, f"the fresh process loaded {bad}")
+    print(f"{robustcap_tpu_torch.ops.geometry_tail.LAUNCHES} tail launches, "
+          f"{len(loaded)} modules of the port loaded")
+    return 0
 
 
 def _check_latency(params, model, dev, root):
@@ -1952,7 +2199,8 @@ def check_serving(params, model, dev):
     (a), their chunk programs against ``StreamingNet(pallas_serve)`` (b),
     ``forward_online`` graphed against eager (c), the multiplexer (d), the
     latency harness (e), the live server over loopback (f). Returns the
-    phase's serve launches by mode and its tail launches."""
+    phase's serve launches by mode and its tail launches, and the tail
+    kernels its CUDA graphs replayed, by kernel row."""
     import shutil
 
     import torch
@@ -1975,8 +2223,11 @@ def check_serving(params, model, dev):
             out, n = _bundle_chunks(mode, bundle, p, cfg, model, dev, stream)
             launches["serve_scan" if mode == "f32"
                      else f"serve_scan_{mode}"] = n
-            online = _bundle_online(mode, bundle, p, mode_cfg, model, dev,
-                                    seq)
+            online, _, prof = _bundle_online(mode, bundle, p, mode_cfg,
+                                             model, dev, seq)
+            tails = _tail_calls(prof, f"{mode} bundle, graphed frame")
+            _require(tails == 0, f"{mode} bundle: {tails} tail kernels a "
+                     "graphed frame without pallas_tail")
             if mode == "f32":
                 plain, _ = run_stream(sig_mp.StreamingNet(
                     params, model, SigMPConfig(), device=dev), stream[0],
@@ -1993,14 +2244,22 @@ def check_serving(params, model, dev):
                                tuple(torch.stack(x).cpu() for x in zip(*ref)),
                                (64, 128, 256))
                 _require(ok, "f32 bundle outside its bounds")
-        _check_multiplexer(params, model, dev)
-        launches["geometry_tail"] = _check_latency(params, model, dev, root)
+        launches["geometry_tail"], replayed = _check_tail_bundle(
+            params, model, dev, root, seq, stream[1][0][1])
+        replayed = {"geometry_tail": replayed}
+        _check_multiplexer(params, model, dev, SigMPConfig())
+        for cap, (n, r) in _check_multiplexer(
+                params, model, dev, SigMPConfig(pallas_tail=True),
+                MUX_TAIL_TICKS, MUX_TAIL_RESET).items():
+            launches[f"geometry_tail_b{cap}"] = n
+            replayed[f"geometry_tail_b{cap}"] = r
+        launches["geometry_tail"] += _check_latency(params, model, dev, root)
         _check_live_server(bundles["f32"], model, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[serving] phase 8 in {time.perf_counter() - t_start:.1f} s; "
-          f"launches {launches}", flush=True)
-    return launches
+          f"launches {launches}, replayed {replayed}", flush=True)
+    return launches, replayed
 
 
 # ---------------------------------------------------------------------------
@@ -2484,7 +2743,7 @@ def check_training_steps(model, dev):
             peak_gb=round(peak / 2**30, 3), syncs=sum(syncs.values()))
         busy = "device time not measured (no device events)"
         if prof is not None:
-            n_k, summed, dev_ms, top = prof
+            n_k, summed, dev_ms, top = prof[:4]
             _require(dev_ms <= ms * (1 + TRAIN_BUSY_MARGIN),
                      f"train step {name}: device busy {dev_ms:.3f} ms a step "
                      f"against a step of {ms:.3f} ms: the busy time or its "
@@ -2928,19 +3187,24 @@ def nccl_shared_card_child(port, rank):
     return 1
 
 
-def _spawn(args_list, timeout):
-    r"""Run the child commands together; each must end within ``timeout``
-    seconds (all are killed otherwise). Returns their (rc, stdout,
-    stderr)."""
+def _start_child(args):
+    r"""This script run as a child process with ``args``, its output
+    piped."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.abspath(__file__)),
          os.environ.get("PYTHONPATH", "")]))
     for k in ("MASTER_ADDR", "MASTER_PORT", "ROBUSTCAP_COORDINATOR"):
         env.pop(k, None)
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               *map(str, a)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env)
-             for a in args_list]
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             *map(str, args)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _spawn(args_list, timeout):
+    r"""Run the child commands together; each must end within ``timeout``
+    seconds (all are killed otherwise). Returns their (rc, stdout,
+    stderr)."""
+    procs = [_start_child(a) for a in args_list]
     deadline = time.monotonic() + timeout
     out = []
     try:
@@ -4068,6 +4332,8 @@ def main():
                           sys.argv[5])
     if sys.argv[1:2] == ["--nccl-shared-card-child"]:
         return nccl_shared_card_child(int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[1:2] == ["--bundle-child"]:
+        return bundle_child(*sys.argv[2:6])
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.ops import _build
     from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
@@ -4096,23 +4362,39 @@ def main():
     model = ParametricModel(data=data, device=dev)
     model_bs = ParametricModel(data=data, use_pose_blendshape=True,
                                device=dev)
+
+    def phase(n):
+        print(f"[time] phase {n} starts at {time.perf_counter() - t_start:.1f}"
+              " s", flush=True)
+
+    phase(2)
     lstm = check_lstm(params, dev, gen)
+    phase(3)
     tail = check_tail([model, model_bs], dev, gen)
+    phase(4)
     launches = check_main(params, model, dev)
+    phase(5)
     serve = check_serve(params, model, dev)
+    phase(6)
     check_batched(params, model, dev)
+    phase(7)
     for key, n in check_eval(params, model, dev).items():
         launches[key] += n
-    for key, n in check_serving(params, model, dev).items():
-        launches[key] += n
+    phase(8)
+    serving, replayed = check_serving(params, model, dev)
+    for key, n in serving.items():
+        launches[key] = launches.get(key, 0) + n
+    phase(9)
     for key, n in check_smplify(params, model, dev).items():
         launches[key] += n
+    phase(10)
     t10 = time.perf_counter()
     check_training_steps(model, dev)
     for key, n in check_training_e2e(model, dev).items():
         launches[key] += n
     print(f"[train] phase 10 in {time.perf_counter() - t10:.1f} s",
           flush=True)
+    phase(11)
     t11 = time.perf_counter()
     card = smi.stdout.strip()
     check_parallel_nccl(model, dev, card)
@@ -4120,8 +4402,10 @@ def main():
     check_preprocess(model, dev, card)
     print(f"[parallel] phase 11 in {time.perf_counter() - t11:.1f} s",
           flush=True)
+    phase(12)
     for key, n in check_live_capture(params, model, dev, card).items():
         launches[key] += n
+    phase(13)
     t13 = time.perf_counter()
     check_dynamics(model, dev, card)
     for key, n in check_views(params, model, dev, card).items():
@@ -4137,11 +4421,15 @@ def main():
              max_abs_err=max(r["max_abs_err"] for r in lstm.values()),
              **{k: v for k, v in lstm["rnn2"].items()
                 if k not in ("max_abs_err", "split")}),
-        dict(name="geometry_tail", route="cuda",
+    ]
+    kernels += [
+        dict(name=name, rows=B, route="cuda",
+             operator="robustcap::geometry_tail",
              source="robustcap_tpu_torch/csrc/geometry_tail.cu",
              replaces="robustcap_tpu/ops/pallas_tail.py:468",
-             launches=launches["geometry_tail"], **tail),
-    ]
+             launches=launches[name], replayed=replayed[name], **row)
+        for B, row in tail.items()
+        for name in ["geometry_tail" if B == 1 else f"geometry_tail_b{B}"]]
     kernels += [
         dict(name="serve_scan" if mode == "f32" else f"serve_scan_{mode}",
              mode=mode, route="cuda", operator="robustcap::serve_scan",
@@ -4150,6 +4438,8 @@ def main():
              launches=launches["serve_scan" if mode == "f32"
                                else f"serve_scan_{mode}"], **row)
         for mode, row in serve.items()]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    _require(not idle, f"kernels launched no time on their paths: {idle}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,6 @@ every public name of the JAX package has a counterpart here.
 
 __version__ = "0.1.0"
 
-from . import math  # noqa: E402,F401
+from . import math, ops  # noqa: E402,F401
 
-__all__ = ["math", "__version__"]
+__all__ = ["math", "ops", "__version__"]

@@ -1,4 +1,5 @@
-// The per-frame geometry tail of the SigMP step in one launch: contact
+// The per-frame geometry tail of the SigMP step for B frames in one launch
+// (one block a row; B = 1 for a single stream): contact
 // sigmoid, r6d -> rotation (Gram-Schmidt, eps 1e-8), IK against the parent,
 // light FK as an ancestor-chain sum, feet in the camera frame, translation
 // from contacts or network velocity, visual position fusion, the 11-slot
@@ -21,13 +22,22 @@
 // layout), all loads in flight at once; the body then reads shared memory
 // only, waits for the constants after Gram-Schmidt and for the rows only in
 // the blendshape product, and writes the outputs straight to global memory
-// (the wrapper's buffer has the body's kOff* layout). Direct indexed loads
+// (the wrapper's buffer has the body's kOff* layout). A batch is a grid of B
+// such blocks: block b reads row b of every per-frame input and carry field
+// (the first-frame flags among them, read from device arrays as the TPU
+// kernel reads them from its scalar vector) and writes row b of the outputs;
+// the constants are shared, so that blocks after the first find them in L2.
+// The rows are independent blocks, which the SMs run side by side (two a
+// SM with the posedirs rows' 82 KB of shared memory). Direct indexed loads
 // (parent index, ancestor chain walked through it, the 33 landmark rows
 // gathered on the host once) take the place of the TPU kernel's constant
 // 0/1 gather matmuls. Config flags are kernel arguments.
 //
 // Plain C interface for ctypes: geometry_tail_launch returns the CUDA error
-// code of the launch (0 on success).
+// code of the launch (0 on success). It makes no host read and no
+// synchronizing call, so a CUDA graph can capture it:
+// cudaFuncSetAttribute sets a property of the function on the host and is
+// not a stream operation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,29 +50,31 @@ namespace {
 constexpr int kThreads = 512;
 static_assert(kThreads >= kTailIn, "one word of the inputs a thread");
 
+// Base pointers of row 0; row b is at b times the field's row size (kRow*).
 struct Args {
-  const float* out7;  // [24, 6]
-  const float* out8;  // [2]
-  const float* rcr;   // [3, 3]
-  const float* vr;    // [3]
-  const float* pc;    // [3]
-  const float* c;     // []
-  const float* k_lerp;  // []
-  const float* first_tran;  // [3]
-  const float* grav;  // [3]
-  const float* last_pfoot;  // [2, 3]
-  const unsigned char* has_pfoot;  // []
-  const float* last_tran;  // [3]
-  const unsigned char* has_tran;  // []
-  const float* floor_buf;  // [11, 3]
-  const int* floor_cnt;  // []
-  const int* vision_count;  // []
-  const float* j_temp;  // [33, 3]
+  const float* out7;  // [B, 24, 6]
+  const float* out8;  // [B, 2]
+  const float* rcr;   // [B, 3, 3]
+  const float* vr;    // [B, 3]
+  const float* pc;    // [B, 3]
+  const float* c;     // [B]
+  const float* k_lerp;  // [B]
+  const float* first_tran;  // [B, 3]
+  const float* grav;  // [B, 3]
+  const unsigned char* first_frame;  // [B]
+  const unsigned char* first_tran_valid;  // [B]
+  const float* last_pfoot;  // [B, 2, 3]
+  const unsigned char* has_pfoot;  // [B]
+  const float* last_tran;  // [B, 3]
+  const unsigned char* has_tran;  // [B]
+  const float* floor_buf;  // [B, 11, 3]
+  const int* floor_cnt;  // [B]
+  const int* vision_count;  // [B]
+  const float* j_temp;  // [B, 33, 3]
   const float* body;  // [kTcBody]: the body-model constants, kTc* layout
   const float* pd;    // [3 x 33, kPdRow] or null
-  float* out;         // [kTailOut], kOff* layout
-  int* out_i;         // [2]: floor_cnt, vision_count
-  int first_frame, first_tran_valid;
+  float* out;         // [B, kTailOut], kOff* layout
+  int* out_i;         // [B, 2]: floor_cnt, vision_count
   float conf_hi, contact_threshold, distance_threshold, tran_filter_num,
       height_threshold;
   int use_flat_floor, live, update_vision_freq, landmarks;
@@ -95,30 +107,31 @@ __global__ void __launch_bounds__(kThreads) geometry_tail_kernel(Args a) {
       bulk_copy(pd, a.pd, kPdBytes, bar + 1);
     }
   }
-  const Seg seg[] = {{a.out7, 144, kInOut7},
-                     {a.out8, 2, kInOut8},
-                     {a.vr, 3, kInVr},
-                     {a.pc, 3, kInPc},
-                     {a.rcr, 9, kInRcr},
-                     {a.c, 1, kInC},
-                     {a.k_lerp, 1, kInC + 1},
-                     {a.first_tran, 3, kInFirstTran},
-                     {a.grav, 3, kInGrav},
-                     {a.last_pfoot, 6, kInLastPfoot},
-                     {a.last_tran, 3, kInLastTran},
-                     {a.floor_buf, 33, kInFloor},
-                     {a.j_temp, 99, kInJtemp},
-                     {a.floor_cnt, 1, kInInts},
-                     {a.vision_count, 1, kInInts + 1}};
+  const int b = blockIdx.x;
+  const Seg seg[] = {{a.out7 + 144 * b, 144, kInOut7},
+                     {a.out8 + 2 * b, 2, kInOut8},
+                     {a.vr + 3 * b, 3, kInVr},
+                     {a.pc + 3 * b, 3, kInPc},
+                     {a.rcr + 9 * b, 9, kInRcr},
+                     {a.c + b, 1, kInC},
+                     {a.k_lerp + b, 1, kInC + 1},
+                     {a.first_tran + 3 * b, 3, kInFirstTran},
+                     {a.grav + 3 * b, 3, kInGrav},
+                     {a.last_pfoot + 6 * b, 6, kInLastPfoot},
+                     {a.last_tran + 3 * b, 3, kInLastTran},
+                     {a.floor_buf + 33 * b, 33, kInFloor},
+                     {a.j_temp + 99 * b, 99, kInJtemp},
+                     {a.floor_cnt + b, 1, kInInts},
+                     {a.vision_count + b, 1, kInInts + 1}};
   copy_segs(seg, in);
   if (tid == kThreads - 1) {
-    // the carry's flags, the frame's and the launch's
+    // the row's carry flags and frame flags, and the launch's
     unsigned char* has = reinterpret_cast<unsigned char*>(in + kInHas);
-    has[0] = *a.has_pfoot;
-    has[1] = *a.has_tran;
+    has[0] = a.has_pfoot[b];
+    has[1] = a.has_tran[b];
     int* ini = reinterpret_cast<int*>(in);
-    ini[kInFirst] = a.first_frame;
-    ini[kInFirst + 1] = a.first_tran_valid;
+    ini[kInFirst] = a.first_frame[b] != 0;
+    ini[kInFirst + 1] = a.first_tran_valid[b] != 0;
     int* tci = reinterpret_cast<int*>(tc);
     tc[kTcConfHi] = a.conf_hi;
     tc[kTcContact] = a.contact_threshold;
@@ -131,27 +144,30 @@ __global__ void __launch_bounds__(kThreads) geometry_tail_kernel(Args a) {
     tci[kTcLandmarks] = a.landmarks;
   }
   __syncthreads();
-  tail_block(in, tc, a.out, a.out_i, a.pd ? pd : nullptr,
+  tail_block(in, tc, a.out + kTailOut * b, a.out_i + 2 * b,
+             a.pd ? pd : nullptr,
              a.pd ? bar + 1 : nullptr, bar, sh);
 }
 
 }  // namespace
 
-// The frame's inputs and carry, the body-model constants (packed), the
-// posedirs rows (or null: no blendshapes), the output buffer and counters,
-// then the flags.
+// B rows: the frames' inputs and flags and the carry (each a base pointer of
+// row 0), the body-model constants (packed), the posedirs rows (or null: no
+// blendshapes), the output buffer and counters, then the batch size and the
+// configuration.
 extern "C" int geometry_tail_launch(
     const float* out7, const float* out8, const float* rcr, const float* vr,
     const float* pc, const float* c, const float* k_lerp,
-    const float* first_tran, const float* grav, const float* last_pfoot,
-    const unsigned char* has_pfoot, const float* last_tran,
-    const unsigned char* has_tran, const float* floor_buf,
-    const int* floor_cnt, const int* vision_count, const float* j_temp,
-    const float* body, const float* pd, float* out, int* out_i,
-    int first_frame, int first_tran_valid, float conf_hi,
-    float contact_threshold, float distance_threshold, float tran_filter_num,
-    float height_threshold, int use_flat_floor, int live,
-    int update_vision_freq, int landmarks, void* stream) {
+    const float* first_tran, const float* grav,
+    const unsigned char* first_frame, const unsigned char* first_tran_valid,
+    const float* last_pfoot, const unsigned char* has_pfoot,
+    const float* last_tran, const unsigned char* has_tran,
+    const float* floor_buf, const int* floor_cnt, const int* vision_count,
+    const float* j_temp, const float* body, const float* pd, float* out,
+    int* out_i, int batch, float conf_hi, float contact_threshold,
+    float distance_threshold, float tran_filter_num, float height_threshold,
+    int use_flat_floor, int live, int update_vision_freq, int landmarks,
+    void* stream) {
   Args a;
   a.out7 = out7;
   a.out8 = out8;
@@ -162,6 +178,8 @@ extern "C" int geometry_tail_launch(
   a.k_lerp = k_lerp;
   a.first_tran = first_tran;
   a.grav = grav;
+  a.first_frame = first_frame;
+  a.first_tran_valid = first_tran_valid;
   a.last_pfoot = last_pfoot;
   a.has_pfoot = has_pfoot;
   a.last_tran = last_tran;
@@ -174,8 +192,6 @@ extern "C" int geometry_tail_launch(
   a.pd = landmarks ? pd : nullptr;
   a.out = out;
   a.out_i = out_i;
-  a.first_frame = first_frame;
-  a.first_tran_valid = first_tran_valid;
   a.conf_hi = conf_hi;
   a.contact_threshold = contact_threshold;
   a.distance_threshold = distance_threshold;
@@ -188,13 +204,14 @@ extern "C" int geometry_tail_launch(
   if ((reinterpret_cast<uintptr_t>(body) | reinterpret_cast<uintptr_t>(a.pd)) &
       15)
     return cudaErrorInvalidValue;
+  if (batch < 1) return cudaErrorInvalidValue;
   const int smem = kOffPd + (a.pd ? kPdBytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
       geometry_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   void* kargs[] = {&a};
-  err = cudaLaunchKernel(geometry_tail_kernel, dim3(1), dim3(kThreads), kargs,
-                         smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernel(geometry_tail_kernel, dim3(batch), dim3(kThreads),
+                         kargs, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -63,7 +63,8 @@ class GraphedStep:
     call after the first must pass a frame of the same structure, shapes
     and types. A capture that fails raises: nothing falls back to running
     the step eagerly. The outputs are copied out of the graph's buffers, so
-    the next replay does not overwrite what a call returned.
+    the next replay does not overwrite what a call returned;
+    :attr:`replays` counts the replays.
 
     On CPU tensors every call runs ``step`` directly."""
 
@@ -77,6 +78,7 @@ class GraphedStep:
         self._frame = None
         self._graph = None
         self._out = None
+        self.replays = 0
 
     @property
     def carry(self):
@@ -100,6 +102,7 @@ class GraphedStep:
         else:
             _copy_into(self._frame, frame)
         self._graph.replay()
+        self.replays += 1
         return tree_map(torch.clone, self._out)
 
     def _capture(self, frame):

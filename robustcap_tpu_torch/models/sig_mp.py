@@ -37,7 +37,8 @@ Network bank — all 2-layer LSTMs, torch-layout params:
   rnn8 | 72 + 69                        | 2     | 512
 
 ``cfg.pallas_tail`` runs the geometry tail through its CUDA kernel
-(``ops/geometry_tail.py``), ``cfg.pallas_inertial`` the rnn2/rnn3 chunk
+(``ops/geometry_tail.py``, the operator ``robustcap::geometry_tail``) in the
+per-frame and the batched step, ``cfg.pallas_inertial`` the rnn2/rnn3 chunk
 pre-scan through the LSTM-scan kernel (``ops/lstm_scan.py``), and
 ``cfg.pallas_serve`` the whole steady step of ``forward_offline`` and
 ``StreamingNet.forward_chunk`` through the serve kernel
@@ -50,6 +51,7 @@ kernel's int8-gate mode.
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from functools import partial
 from typing import Dict, Optional, Sequence
@@ -63,8 +65,9 @@ from ..math.general import lerp
 from ..math.spatial import mat3_mul
 from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
                       prepare_scan_params, rnn_step)
-from ..ops.geometry_tail import (geometry_tail, sync_mp3d, tail_batched,
-                                 tail_constants, tail_plain)
+from ..ops.geometry_tail import (geometry_tail, geometry_tail_batched,
+                                 sync_mp3d, tail_batched, tail_constants,
+                                 tail_plain)
 from ..ops.lstm_scan import prepare_lstm_scan, rnn_scan_chunked
 from ..ops.serve_scan import check_serve_cfg, serve_params_for, serve_scan
 
@@ -631,11 +634,14 @@ def _batched_consts(body_model):
 def make_batched_step(body_model, cfg: SigMPConfig):
     r"""The steady step (``include_first_frame_step=False``) over a leading
     batch axis, in the branchless form the JAX package vmaps for its batched
-    paths (``fuse_spec_heads=False``, ``cond_updater=False``, no kernels):
-    the speculative heads and tail on the inertial joints, one rnn4 and one
-    rnn6 evaluation on inputs selected between the real and the refed
-    keypoints, then the final heads and tail. Every stack is one product of
-    ``[B, K]`` rows per weight.
+    paths (``fuse_spec_heads=False``, ``cond_updater=False``): the
+    speculative heads and tail on the inertial joints, one rnn4 and one rnn6
+    evaluation on inputs selected between the real and the refed keypoints,
+    then the final heads and tail. Every stack is one product of ``[B, K]``
+    rows per weight. With ``cfg.pallas_tail`` each tail is one call of the
+    operator ``robustcap::geometry_tail`` over the B rows (one kernel launch
+    on the card), as the JAX step runs its tail kernel under ``vmap``; the
+    other kernel flags are not read here.
 
     ``step(params, carry, frame) -> (carry, (pose [B, 24, 3, 3],
     tran [B, 3]))``: the carry from ``init_carry(params,
@@ -644,6 +650,7 @@ def make_batched_step(body_model, cfg: SigMPConfig):
     ``[B]`` bool tensors. The confidence is computed on the device and no
     value is read back to the host."""
     consts = _batched_consts(body_model)
+    tail = geometry_tail_batched if cfg.pallas_tail else tail_batched
     stack_step = partial(rnn_step, int8_compute=cfg.int8_compute)
     conf_lo, conf_hi = cfg.conf_range
     inv_range = 1.0 / (conf_hi - conf_lo)
@@ -653,8 +660,8 @@ def make_batched_step(body_model, cfg: SigMPConfig):
         x = _bcat(accr, orir, j3dr)
         out7, st7_new = stack_step(params["rnn7"], x, st["rnn7"])
         out8, st8_new = stack_step(params["rnn8"], x, st["rnn8"])
-        T = tail_batched(consts, cfg, out7, out8, carry, frame, c, Rcr, vr,
-                         pc, k_lerp)
+        T = tail(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
+                 k_lerp)
         if cfg.use_reproj_opt:
             T["tran"], T["j_lm"] = _reproj_refine(cfg, frame["j2dc"], c,
                                                   T["tran"], T["j_lm"])
@@ -826,8 +833,9 @@ def forward_offline_batched(params, body_model, cfg, frames_batched,
     run. A row's frames past its own length are padding, which the caller
     discards; the step is causal, so they change no valid frame.
 
-    The kernels are not used here, as in the JAX package's batched path
-    (``cfg``'s ``pallas_*`` flags are ignored). Params and body model must
+    No kernel runs here, as in the JAX package's batched path: ``cfg``'s
+    ``pallas_tail`` is turned off before the step is built, and the other
+    ``pallas_*`` flags are not read. Params and body model must
     already be on ``device``; with frames already there too, the run reads
     nothing back to the host once the body model has been seen."""
     dev = resolve_device(device)
@@ -838,7 +846,8 @@ def forward_offline_batched(params, body_model, cfg, frames_batched,
     B, T = frames["j2dc"].shape[:2]
     if lengths is not None:
         T = max(int(n) for n in lengths)
-    step = make_batched_step(body_model, cfg)
+    step = make_batched_step(body_model,
+                             dataclasses.replace(cfg, pallas_tail=False))
     carry = prescan_first_frame(
         params, body_model, init_carry(params, batch_shape=(B,)),
         {k: v[:, 0] for k, v in frames.items()}, cfg.int8_compute)

@@ -1,26 +1,33 @@
 r"""The per-frame geometry tail of the SigMP step.
 
-Everything below the rnn7/rnn8 heads of one frame: contact sigmoid, r6d ->
+Everything below the rnn7/rnn8 heads of a frame: contact sigmoid, r6d ->
 rotation (Gram-Schmidt), IK against the parent, light FK, translation from
 contacts or network velocity, visual position fusion, the flat-floor ring,
 first-frame overrides and the 33-landmark LBS with ``sync_mp3d`` and the
-live-mode throttle. :func:`geometry_tail` takes the place of the JAX
-package's ``ops/pallas_tail.py::geometry_tail``: on a CUDA tensor it is one
-launch of the hand-written kernel ``csrc/geometry_tail.cu``; on a CPU tensor
-it runs the plain version, :func:`tail_plain`, which is also what the step
-runs on any device when ``cfg.pallas_tail`` is off. The reprojection
-refinement stays with the caller, as in the JAX package.
+live-mode throttle. The reprojection refinement stays with the caller, as
+in the JAX package.
 
-Frame flags ``first_frame`` and ``first_tran_valid`` are host booleans (the
-port's frames carry them on the host); everything else is a tensor on the
-frame's device. :func:`tail_batched` is the same tail over a leading batch
-axis, for the batched step: there the flags are ``[B]`` bool tensors and
-every decision is a ``torch.where``, as under ``jax.vmap``.
+:func:`tail_plain` is the plain version for one frame and
+:func:`tail_batched` the same over a leading batch axis, where the flags
+``first_frame`` and ``first_tran_valid`` are ``[B]`` bool tensors and every
+decision is a ``torch.where``, as under ``jax.vmap``. The steps run them
+when ``cfg.pallas_tail`` is off.
+
+With ``cfg.pallas_tail`` the tail is the operator
+``torch.ops.robustcap.geometry_tail``, which takes the place of the JAX
+package's ``ops/pallas_tail.py::geometry_tail`` (and of that kernel under
+``vmap``): on CUDA tensors one launch of the hand-written kernel
+``csrc/geometry_tail.cu`` over B rows, with the flags read on the device;
+on CPU tensors :func:`tail_batched`. :func:`geometry_tail_batched` calls it
+for the batched step (also when exported or captured in a CUDA graph), and
+:func:`geometry_tail` for one frame as a batch of one, its host flags
+filled into device tensors without a copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -28,19 +35,27 @@ import torch
 from ..config import MP_VERTEX_MASK, VEL_SCALE
 from ..math.angular import r6d_to_rotation_matrix
 from ..math.general import lerp
-from ..math.spatial import mat3_mul
+from ..math.spatial import get_tree, mat3_mul
 from . import _build
 
 __all__ = ["LAUNCHES", "PD_ROW", "BODY_WORDS", "tail_constants", "tail_plain",
-           "tail_batched", "geometry_tail", "sync_mp3d"]
+           "tail_batched", "geometry_tail", "geometry_tail_batched",
+           "sync_mp3d"]
 
-# kernel launches so far (one per call on CUDA tensors)
+# kernel launches so far (one per operator call on CUDA tensors outside a
+# CUDA graph's capture; a capture launches nothing and a replay does not
+# come through here)
 LAUNCHES = 0
 
 # The kernels' layouts (csrc/tail_block.cuh): floats of a posedirs row
 # (kPdRow) and words of the packed body-model constants (kTcBody)
 PD_ROW = 208
 BODY_WORDS = 1060
+# the packed body-model constants: (name, first word, shape), the kTc*
+# words of csrc/tail_block.cuh
+_BODY_SLICES = (("parent", 0, (24,)), ("bone", 24, (24, 3)),
+                ("j0", 96, (24, 3)), ("wsub", 168, (33, 24)),
+                ("v0sub", 960, (33, 3)))
 
 
 def sync_mp3d(vert_mp: torch.Tensor, joint: torch.Tensor) -> torch.Tensor:
@@ -86,11 +101,12 @@ def tail_constants(body_model):
         "pd": None,
         "pd_rows": None,
     }
-    body = torch.cat([consts["parent"].view(torch.float32)]
-                     + [consts[k].reshape(-1).to(torch.float32)
-                        for k in ("bone", "j0", "wsub", "v0sub")])
-    consts["body"] = torch.cat([body, body.new_zeros(BODY_WORDS
-                                                     - body.numel())])
+    body = torch.zeros(BODY_WORDS, dtype=torch.float32, device=dev)
+    for name, off, shape in _BODY_SLICES:
+        x = consts[name]
+        x = x.view(torch.float32) if x.dtype == torch.int32 else x
+        body[off:off + x.numel()] = x.reshape(shape).reshape(-1)
+    consts["body"] = body
     if consts["blendshape"]:
         pd = body_model._posedirs[ids]                       # [33, 3, 207]
         consts["pd"] = pd.permute(1, 2, 0).contiguous()
@@ -324,14 +340,35 @@ def tail_batched(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 21 + [_I, _I] + [_F] * 5 + [_I] * 4 + [_P]
+_ARGTYPES = [_P] * 23 + [_I] + [_F] * 5 + [_I] * 4 + [_P]
 
-# f32 output fields and their shapes, laid end to end in one output buffer
-# as the kernel writes them (csrc/tail_block.cuh's kOff* words)
+# f32 output fields and their shapes, laid end to end in a row of the
+# operator's first output as the kernel writes them (csrc/tail_block.cuh's
+# kOff* words); the second output holds floor_cnt and vision_count
 _OUT_F32 = (("pose", (24, 3, 3)), ("tran", (3,)), ("contact", (2,)),
             ("pfoot", (2, 3)), ("floor_buf", (11, 3)), ("j_temp", (33, 3)),
             ("joint", (24, 3)), ("j_lm", (33, 3)))
 _OUT_F32_SIZE = sum(int(np.prod(s)) for _, s in _OUT_F32)
+# (name, first word, words, shape) of each field in a row
+_OUT_SLICES = tuple(
+    (name, int(sum(np.prod(s) for _, s in _OUT_F32[:i])), int(np.prod(shape)),
+     shape) for i, (name, shape) in enumerate(_OUT_F32))
+
+# the operator's operands, each with a leading B, in the kernel's order:
+# (name, shape of a row, dtype)
+_F32, _I32, _B8 = torch.float32, torch.int32, torch.bool
+_FRAME_OPS = (("out7", (144,), _F32), ("out8", (2,), _F32),
+              ("Rcr", (3, 3), _F32), ("vr", (3,), _F32), ("pc", (3,), _F32),
+              ("c", (), _F32), ("k_lerp", (), _F32),
+              ("first_tran", (3,), _F32), ("gravityc", (3,), _F32),
+              ("first_frame", (), _B8), ("first_tran_valid", (), _B8))
+_CARRY_OPS = (("last_pfoot", (2, 3), _F32), ("has_pfoot", (), _B8),
+              ("last_tran", (3,), _F32), ("has_tran", (), _B8),
+              ("floor_buf", (11, 3), _F32), ("floor_cnt", (), _I32),
+              ("vision_count", (), _I32), ("j_temp", (33, 3), _F32))
+_FLTS = ("conf_hi", "contact_threshold", "distance_threshold",
+         "tran_filter_num", "height_threshold")
+_INTS = ("use_flat_floor", "live", "update_vision_freq", "landmarks")
 
 
 def _lib():
@@ -354,73 +391,191 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp):
-    global LAUNCHES
-    dev = out7.device
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    landmarks = bool(cfg.use_reproj_opt or cfg.use_vision_updater)
-    blendshape = consts["blendshape"] and landmarks
-    inputs = [
-        ("out7", out7.reshape(24, 6), (24, 6), f32),
-        ("out8", out8, (2,), f32),
-        ("Rcr", Rcr, (3, 3), f32),
-        ("vr", vr.reshape(3), (3,), f32),
-        ("pc", pc.reshape(3), (3,), f32),
-        ("c", c, (), f32),
-        ("k_lerp", k_lerp, (), f32),
-        ("first_tran", frame["first_tran"], (3,), f32),
-        ("gravityc", frame["gravityc"], (3,), f32),
-        ("last_pfoot", carry["last_pfoot"], (2, 3), f32),
-        ("has_pfoot", carry["has_pfoot"], (), b8),
-        ("last_tran", carry["last_tran"], (3,), f32),
-        ("has_tran", carry["has_tran"], (), b8),
-        ("floor_buf", carry["floor_buf"], (11, 3), f32),
-        ("floor_cnt", carry["floor_cnt"], (), i32),
-        ("vision_count", carry["vision_count"], (), i32),
-        ("j_temp", carry["j_temp"], (33, 3), f32),
-        ("body", consts["body"], (BODY_WORDS,), f32),
-    ]
-    if blendshape:
-        inputs.append(("pd_rows", consts["pd_rows"], (99, PD_ROW), f32))
-    for name, t, shape, dtype in inputs:
-        _check(name, t, shape, dtype, dev)
-    ptrs = [t.data_ptr() for _, t, _, _ in inputs]
-    if not blendshape:
-        ptrs.append(None)
+def _op_args(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp):
+    r"""The operator's arguments from B rows of the tail's inputs (each
+    made contiguous): frame operands, carry operands, the packed body
+    constants, the posedirs rows (``None`` without blendshapes or
+    landmarks), and the configuration's floats and ints."""
+    B = out7.shape[0]
 
-    buf = torch.empty((_OUT_F32_SIZE,), dtype=f32, device=dev)
-    counts = torch.empty((2,), dtype=i32, device=dev)
-    out, off = {}, 0
-    for name, shape in _OUT_F32:
-        n = int(np.prod(shape))
-        out[name] = buf[off:off + n].view(shape)
-        off += n
-    out["floor_cnt"], out["vision_count"] = counts[0], counts[1]
-    ptrs += [buf.data_ptr(), counts.data_ptr()]
+    def rows(t, shape):
+        shape = (B,) + shape
+        return (t if t.shape == shape else t.reshape(shape)).contiguous()
+
+    vals = dict(out7=out7, out8=out8, Rcr=Rcr, vr=vr, pc=pc, c=c,
+                k_lerp=k_lerp)
+    vals.update((k, frame[k]) for k in ("first_tran", "gravityc",
+                                        "first_frame", "first_tran_valid"))
+    frame_ops = [rows(vals[k], shape) for k, shape, _ in _FRAME_OPS]
+    carry_ops = [rows(carry[k], shape) for k, shape, _ in _CARRY_OPS]
+    landmarks = bool(cfg.use_reproj_opt or cfg.use_vision_updater)
+    bs = consts["blendshape"] and landmarks
+    flts = [float(cfg.conf_range[1]), float(cfg.contact_threshold),
+            float(cfg.distance_threshold), float(cfg.tran_filter_num),
+            float(cfg.height_threshold)]
+    ints = [int(cfg.use_flat_floor), int(cfg.live),
+            int(cfg.update_vision_freq), int(landmarks)]
+    return (frame_ops, carry_ops, consts["body"],
+            consts["pd_rows"] if bs else None, flts, ints)
+
+
+def _pack(out):
+    r"""The plain version's dict as the operator's two outputs."""
+    B = out["tran"].shape[0]
+    return (torch.cat([out[k].reshape(B, -1) for k, _ in _OUT_F32], 1),
+            torch.stack([out["floor_cnt"], out["vision_count"]],
+                        1).to(_I32))
+
+
+def _unpack(buf, counts):
+    r"""The dict of :func:`tail_batched` (or, from one row of the outputs,
+    of :func:`tail_plain`) as views of the operator's outputs."""
+    lead = tuple(buf.shape[:-1])
+    out = {name: buf.narrow(-1, off, n).view(lead + shape)
+           for name, off, n, shape in _OUT_SLICES}
+    out["floor_cnt"], out["vision_count"] = counts.unbind(-1)
+    return out
+
+
+def _unpack_consts(body, pd_rows):
+    r"""The constants :func:`tail_batched` reads, as views of the packed
+    ``body`` words and posedirs rows (the ancestor matrix from the parent
+    index)."""
+    const = {name: body.narrow(0, off, int(np.prod(shape))).view(shape)
+             for name, off, shape in _BODY_SLICES}
+    parent = const["parent"].view(torch.int32)
+    tree = get_tree(parent.tolist())
+    const.update(parent=parent, anc=torch.as_tensor(tree.ancestor_matrix),
+                 slots=torch.arange(11), blendshape=pd_rows is not None,
+                 pd=None)
+    if pd_rows is not None:
+        const["pd"] = pd_rows[:, :207].reshape(3, 33, 207).permute(
+            0, 2, 1).contiguous()
+    return const
+
+
+def _geometry_tail_cpu(frame_ops, carry_ops, body, pd_rows, flts, ints):
+    r"""The operator on CPU tensors: :func:`tail_batched`."""
+    v = {k: t for (k, _, _), t in zip(_FRAME_OPS, frame_ops)}
+    frame = {k: v[k] for k in ("first_tran", "gravityc", "first_frame",
+                               "first_tran_valid")}
+    carry = {k: t for (k, _, _), t in zip(_CARRY_OPS, carry_ops)}
+    f = dict(zip(_FLTS, flts))
+    i = dict(zip(_INTS, ints))
+    cfg = SimpleNamespace(
+        conf_range=(None, f["conf_hi"]),
+        contact_threshold=f["contact_threshold"],
+        distance_threshold=f["distance_threshold"],
+        tran_filter_num=f["tran_filter_num"],
+        height_threshold=f["height_threshold"],
+        use_flat_floor=bool(i["use_flat_floor"]), live=bool(i["live"]),
+        update_vision_freq=i["update_vision_freq"],
+        use_vision_updater=bool(i["landmarks"]), use_reproj_opt=False)
+    return _pack(tail_batched(_unpack_consts(body, pd_rows), cfg, v["out7"],
+                              v["out8"], carry, frame, v["c"], v["Rcr"],
+                              v["vr"], v["pc"], v["k_lerp"]))
+
+
+def _geometry_tail_cuda(frame_ops, carry_ops, body, pd_rows, flts, ints):
+    r"""The operator on CUDA tensors: one launch of the kernel over the B
+    rows, on the current stream, with no host read (while the stream is
+    captured into a CUDA graph, the graph's node, not counted as a
+    launch)."""
+    global LAUNCHES
+    dev = frame_ops[0].device
+    B = frame_ops[0].shape[0]
+    named = list(zip(_FRAME_OPS, frame_ops)) + list(zip(_CARRY_OPS,
+                                                        carry_ops))
+    for (name, shape, dtype), t in named:
+        _check(name, t, (B,) + shape, dtype, dev)
+    _check("body", body, (BODY_WORDS,), _F32, dev)
+    if pd_rows is not None:
+        _check("pd_rows", pd_rows, (99, PD_ROW), _F32, dev)
+    buf = torch.empty((B, _OUT_F32_SIZE), dtype=_F32, device=dev)
+    counts = torch.empty((B, 2), dtype=_I32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(
-        *ptrs, int(bool(frame["first_frame"])),
-        int(bool(frame["first_tran_valid"])), float(cfg.conf_range[1]),
-        float(cfg.contact_threshold), float(cfg.distance_threshold),
-        float(cfg.tran_filter_num), float(cfg.height_threshold),
-        int(cfg.use_flat_floor), int(cfg.live), int(cfg.update_vision_freq),
-        int(landmarks), stream)
+    err = _lib()(*(t.data_ptr() for _, t in named), body.data_ptr(),
+                 None if pd_rows is None else pd_rows.data_ptr(),
+                 buf.data_ptr(), counts.data_ptr(), B, *flts, *ints, stream)
     if err != 0:
         raise RuntimeError(
             f"geometry_tail kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return out
+    if dev.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
+    return buf, counts
+
+
+def _geometry_tail_fake(frame_ops, carry_ops, body, pd_rows, flts, ints):
+    B = frame_ops[0].shape[0]
+    return (frame_ops[0].new_empty((B, _OUT_F32_SIZE)),
+            frame_ops[0].new_empty((B, 2), dtype=_I32))
+
+
+geometry_tail_op = torch.library.custom_op(
+    "robustcap::geometry_tail", _geometry_tail_cpu, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor[] frame_ops, Tensor[] carry_ops, Tensor body, "
+           "Tensor? pd_rows, float[] flts, int[] ints) -> (Tensor, Tensor)")
+geometry_tail_op.register_kernel("cuda")(_geometry_tail_cuda)
+geometry_tail_op.register_fake(_geometry_tail_fake)
+
+
+def _check_device(dev):
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no geometry-tail path for device {dev}")
+
+
+def _launch_batched(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
+                    k_lerp):
+    r"""The kernel launch of :func:`geometry_tail_batched` called directly,
+    on the tensors' own device, without the dispatcher: the g++ stand-in
+    tests run the kernel's source on CPU tensors through it."""
+    return _unpack(*_geometry_tail_cuda(*_op_args(
+        consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp)))
+
+
+def geometry_tail_batched(consts, cfg, out7, out8, carry, frame, c, Rcr, vr,
+                          pc, k_lerp):
+    r"""The tail of B frames, as one call of the operator
+    ``torch.ops.robustcap.geometry_tail``: one kernel launch of B blocks on
+    CUDA tensors, :func:`tail_batched` on CPU tensors. Same inputs and
+    returned dict as :func:`tail_batched` (the flags ``[B]`` bool tensors
+    on the device); the returned fields are views of the operator's two
+    outputs."""
+    _check_device(out7.device)
+    return _unpack(*torch.ops.robustcap.geometry_tail(*_op_args(
+        consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp)))
+
+
+def _one_frame(run, consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
+               k_lerp):
+    r"""``run`` (the operator, or the kernel's direct call) on one frame as
+    a batch of one; returns row 0 as views. The host flags become ``[1]``
+    bool tensors filled on the device (no copy, no host sync)."""
+    def flag(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.full((1,), bool(x), dtype=_B8, device=out7.device)
+
+    frame = dict(frame, first_frame=flag(frame["first_frame"]),
+                 first_tran_valid=flag(frame["first_tran_valid"]))
+    buf, counts = run(*_op_args(consts, cfg, out7.reshape(1, -1), out8,
+                                carry, frame, c, Rcr, vr, pc, k_lerp))
+    return _unpack(buf[0], counts[0])
+
+
+def _launch(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc, k_lerp):
+    r"""The kernel's direct call (:func:`_launch_batched`) on one frame, with
+    the arguments of :func:`geometry_tail`."""
+    return _one_frame(_geometry_tail_cuda, consts, cfg, out7, out8, carry,
+                      frame, c, Rcr, vr, pc, k_lerp)
 
 
 def geometry_tail(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
                   k_lerp):
-    r"""The whole post-heads tail of one frame: one kernel launch on CUDA
-    tensors, the plain version on CPU tensors. Same inputs and returned
-    dict as :func:`tail_plain`."""
-    if out7.device.type == "cpu":
-        return tail_plain(consts, cfg, out7, out8, carry, frame, c, Rcr, vr,
-                          pc, k_lerp)
-    if out7.device.type != "cuda":
-        raise ValueError(f"no geometry-tail path for device {out7.device}")
-    return _launch(consts, cfg, out7, out8, carry, frame, c, Rcr, vr, pc,
-                   k_lerp)
+    r"""The whole post-heads tail of one frame: the operator on a batch of
+    one, so one kernel launch on CUDA tensors and :func:`tail_batched` on
+    CPU tensors. Same inputs and returned dict as :func:`tail_plain`."""
+    _check_device(out7.device)
+    return _one_frame(torch.ops.robustcap.geometry_tail, consts, cfg, out7,
+                      out8, carry, frame, c, Rcr, vr, pc, k_lerp)

@@ -38,10 +38,17 @@ What differs from the JAX bundle, with the same values:
   (``"xla_scan"``). The manifest lists the lengths it takes, as in JAX.
 * ``device`` takes the place of JAX's ``platforms``: the programs are
   exported for one device type and load only there.
-* ``cfg.pallas_tail`` and ``cfg.pallas_inertial`` raise at export: the
-  exported step has no tail or LSTM-scan kernel (those kernels are not
-  operators yet), and exporting the plain step under those flags would
-  hide that.
+* With ``cfg.pallas_tail`` the step program holds the tail kernel as the
+  operator ``torch.ops.robustcap.geometry_tail`` (``ops/geometry_tail.py``,
+  one launch over the batch's rows), twice a frame with the vision updater
+  (the speculative and the final tail), as the JAX step carries its tail
+  kernel; the graph that ``forward_online`` replays holds those launches,
+  and so do the step-loop chunks. A program that holds the operator loads
+  where ``robustcap_tpu_torch`` is imported, which registers it.
+* ``cfg.pallas_inertial`` raises at export. The JAX bundle accepts it and
+  never runs the LSTM-scan kernel: its step and prescan take no chunk
+  pre-scan, and its ``xla_scan`` chunks scan the per-frame step. The port
+  refuses the flag rather than export a program that ignores it.
 """
 
 from __future__ import annotations
@@ -165,11 +172,10 @@ def _chunk_program(prepped, consts, cfg):
 
 
 def _check_export_cfg(cfg):
-    if cfg.pallas_tail or cfg.pallas_inertial:
+    if cfg.pallas_inertial:
         raise ValueError(
-            "export_serving_bundle: the exported step has no geometry-tail "
-            "or LSTM-scan kernel yet (cfg.pallas_tail, cfg.pallas_inertial); "
-            "export with those flags off")
+            "export_serving_bundle: no exported program runs the LSTM-scan "
+            "chunk pre-scan (cfg.pallas_inertial); export with it off")
 
 
 def export_serving_bundle(params, body_model, cfg: SigMPConfig, path: str,
@@ -185,8 +191,9 @@ def export_serving_bundle(params, body_model, cfg: SigMPConfig, path: str,
     ``cfg.pallas_serve`` each chunk length gets a program around the serve
     kernel (``chunk.pt2`` for ``chunk_len``, ``chunk_<K>.pt2`` for the
     others); without it the chunk mode is ``"step_loop"`` and no chunk
-    program is written (see the module docstring). Raises ``ValueError``
-    for ``cfg.pallas_tail`` or ``cfg.pallas_inertial``."""
+    program is written (see the module docstring). With
+    ``cfg.pallas_tail`` the step program holds the tail operator. Raises
+    ``ValueError`` for ``cfg.pallas_inertial``."""
     _check_export_cfg(cfg)
     dev = resolve_device(device)
     sig_mp._require_device(params, body_model, dev)

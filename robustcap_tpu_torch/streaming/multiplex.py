@@ -13,9 +13,12 @@ runs the batched prescan, masked per row.
 
 The JAX multiplexer vmaps ``make_step(fuse_spec_heads=True,
 cond_updater=False)``; the port's branchless batched step computes the same
-values in another order. The batched step runs no kernel, so a ``cfg``
-with ``pallas_tail``, ``pallas_inertial`` or ``pallas_serve`` raises rather
-than being ignored.
+values in another order. With ``cfg.pallas_tail`` each tail of the tick is
+one launch of the tail kernel over the ``capacity`` rows (the operator
+``robustcap::geometry_tail``; two a tick with the vision updater), in the
+eager and in the graphed tick, as the JAX multiplexer runs its tail kernel
+under ``vmap``. The tick runs no other kernel, so a ``cfg`` with
+``pallas_inertial`` or ``pallas_serve`` raises rather than being ignored.
 """
 
 from __future__ import annotations
@@ -40,11 +43,10 @@ class StreamingMultiplexer:
     def __init__(self, params, body_model, cfg: Optional[SigMPConfig] = None,
                  capacity: int = 8, device="cuda"):
         self.cfg = cfg or SigMPConfig.live_mode()
-        if self.cfg.pallas_tail or self.cfg.pallas_inertial \
-                or self.cfg.pallas_serve:
-            raise ValueError("StreamingMultiplexer: the batched step has no "
-                             "kernel; pass a cfg with every pallas_* flag "
-                             "off")
+        if self.cfg.pallas_inertial or self.cfg.pallas_serve:
+            raise ValueError("StreamingMultiplexer: the batched tick runs no "
+                             "LSTM-scan or serve kernel; pass a cfg with "
+                             "pallas_inertial and pallas_serve off")
         self.device = resolve_device(device)
         sig_mp._require_device(params, body_model, self.device)
         self.params = params

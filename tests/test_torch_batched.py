@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from robustcap_tpu.config import SigMPConfig as JaxConfig
 from robustcap_tpu.models import sig_mp as jsig
@@ -284,3 +285,30 @@ def test_batched_prescan_keeps_other_rows(world):
             assert changed.tolist() == first.tolist()
     assert (out["pc_first"][~torch.from_numpy(first)] == 0).all()
     assert (out["pc_first"][1] != 0).any()
+
+
+class _Ops(TorchDispatchMode):
+    r"""Records the operators that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.name())
+        return func(*args, **(kwargs or {}))
+
+
+def test_offline_batched_runs_no_kernel(world, f32_runs):
+    r"""With ``pallas_tail`` the batched path still runs no kernel, as the
+    JAX package's: the tail operator is never called, and the result is
+    the flag-off run's bit for bit."""
+    _, tm, _, tp, _, frames = world
+    with _Ops() as ops:
+        got = tsig.forward_offline_batched(
+            tp, tm, SigMPConfig(pallas_tail=True), frames, lengths=LENGTHS,
+            device="cpu")
+    assert "robustcap::geometry_tail" not in ops.names
+    assert "aten::mm" in ops.names or "aten::addmm" in ops.names
+    for g, w in zip(got, f32_runs[1]):
+        np.testing.assert_array_equal(g.numpy(), w)

@@ -13,7 +13,11 @@ another order); against JAX 5e-4, as that file holds float32 against JAX
 states); the int8 bundle against JAX with the bounds that file uses for
 the quantized modes; a chunk program against ``StreamingNet``'s serve path
 bit for bit (the same operator on the same operands), against JAX's chunk
-3e-4, the JAX test's bound.
+3e-4, the JAX test's bound. A bundle exported with ``pallas_tail`` (its
+step program holds the tail operator ``robustcap::geometry_tail``) against
+the JAX bundle exported with ``pallas_tail`` (its tail kernel in Pallas
+interpret mode) 1e-5: both run the tail kernel's plain arithmetic on the
+CPU over small widths, and differ by ~1e-6 over the stream.
 """
 
 import json
@@ -27,6 +31,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from robustcap_tpu import serving as jserving
 from robustcap_tpu.config import SigMPConfig as JaxConfig
 from robustcap_tpu.models import sig_mp as jsig
 from robustcap_tpu.nn import rnn as jrnn
@@ -249,10 +254,11 @@ def test_weights_are_runtime_inputs(world, serve_bundle, tmp_path):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("flag", ["pallas_tail", "pallas_inertial"])
+@pytest.mark.parametrize("flag", ["pallas_inertial"])
 def test_export_refuses_kernel_flags(world, tmp_path, flag):
-    r"""The exported step has no tail or LSTM-scan kernel: exporting with
-    either flag raises rather than exporting the plain step."""
+    r"""No exported program runs the LSTM-scan chunk pre-scan: exporting
+    with the flag raises rather than exporting a program that ignores
+    it."""
     _, tm, _, tp = world
     with pytest.raises(ValueError, match=flag):
         export_serving_bundle(tp, tm, SigMPConfig(**{flag: True}),
@@ -375,3 +381,52 @@ def test_cli_export_latency_and_live_server(world, tmp_path, capsys,
     with pytest.raises(ValueError, match="ml_dtypes"):
         main(["export", "--weights", bf16, "--out", out + "2",
               "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def tail_bundles(world, tmp_path_factory):
+    r"""Bundles exported with ``pallas_tail`` and 5-frame chunks: the port's
+    (step-loop chunks) and the JAX package's (an XLA scan), loaded."""
+    jm, tm, jp, tp = world
+    root = tmp_path_factory.mktemp("bundles")
+    path = str(root / "tail")
+    export_serving_bundle(tp, tm, SigMPConfig(pallas_tail=True), path,
+                          chunk_len=5, device="cpu")
+    jserving.export_serving_bundle(jp, jm, JaxConfig(pallas_tail=True),
+                                   str(root / "tail_jax"), chunk_len=5)
+    return (path, ServingBundle.load(path, device="cpu"),
+            jserving.ServingBundle.load(str(root / "tail_jax")))
+
+
+def _tail_calls(path):
+    prog = torch.export.load(path)
+    return sum(1 for n in prog.graph.nodes if n.op == "call_function"
+               and "robustcap.geometry_tail" in str(n.target))
+
+
+def test_tail_bundle_matches_jax_bundle(tail_bundles, serve_bundle):
+    r"""The step program holds the tail operator twice (the speculative and
+    the final tail), the serve bundle's none; ``forward_online`` over six
+    mixed-confidence frames from a first frame, then two 5-frame
+    ``forward_chunk`` calls, each frame within 1e-5 of the JAX bundle's."""
+    path, bundle, jbundle = tail_bundles
+    assert bundle.manifest["chunk_mode"] == "step_loop"
+    assert bundle.cfg.pallas_tail
+    assert _tail_calls(os.path.join(path, "step.pt2")) == 2
+    assert _tail_calls(os.path.join(serve_bundle[0], "step.pt2")) == 0
+    j2, ac, orc = make_inputs(11, CONF + CONF[:5])
+    bundle.reset_states()
+    jbundle.reset_states()
+    for t in range(6):
+        got = bundle.forward_online(j2[t], ac[t], orc[t], first_frame=t == 0)
+        want = jbundle.forward_online(j2[t], ac[t], orc[t],
+                                      first_frame=t == 0)
+        for g, w in zip(got, want):
+            _close(g, w, ATOL_PORT)
+    for sl in (slice(6, 11), slice(11, 16)):
+        got = bundle.forward_chunk(j2[sl], ac[sl], orc[sl])
+        want = jbundle.forward_chunk(j2[sl], ac[sl], orc[sl])
+        assert tuple(got[0].shape) == (5, 24, 3, 3)
+        for g, w in zip(got, want):
+            _close(g, w, ATOL_PORT)
+

@@ -6,7 +6,8 @@ its ``LiveConfig`` and ``default_body_model``, against the port's
 Both packages get the same numpy frames and the same weights (JAX
 ``init_params`` at the small ``SPECS``, carried across with
 ``params_from_numpy``). Tolerances: each multiplexer row against the port's
-``StreamingNet`` 3e-5, the JAX test's bound; against JAX's multiplexer and
+``StreamingNet`` 3e-5, the JAX test's bound (and with ``pallas_tail``
+against the port's multiplexer without it); against JAX's multiplexer and
 server 5e-4, as ``tests/test_torch_batched.py`` holds float32 against JAX
 (XLA and PyTorch sum in other orders, compounded through the carried
 states). The live server's pose is compared as rotation matrices, since
@@ -141,11 +142,35 @@ def test_capacity_limit(world):
     assert mux.open_slot() == 0
 
 
-@pytest.mark.parametrize("flag", ["pallas_tail", "pallas_inertial",
-                                  "pallas_serve"])
+def test_multiplexer_with_tail_kernel_matches_jax(world):
+    r"""``pallas_tail``: three sessions in a capacity-3 multiplexer, each
+    tick's tails through the tail operator (its CPU implementation), against
+    JAX's multiplexer with its tail kernel (Pallas interpret mode, under
+    ``vmap``) and against the port's multiplexer without the flag."""
+    jm, tm, jp, tp = world
+    T, cap = 4, 3
+    streams = [make_inputs(60 + k, c[:T]) for k, c in enumerate(CONFS)]
+    muxes = [StreamingMultiplexer(tp, tm, SigMPConfig(pallas_tail=flag),
+                                  capacity=cap, device="cpu")
+             for flag in (True, False)]
+    jmux = JaxMultiplexer(jp, jm, JaxConfig(pallas_tail=True), capacity=cap)
+    slots = [jmux.open_slot() for _ in streams]
+    for mux in muxes:
+        assert [mux.open_slot() for _ in streams] == slots
+    for t in range(T):
+        batch = _tick(streams, slots, t, cap)
+        ff = np.ones(cap, bool) if t == 0 else None
+        got, plain = (mux.step(*batch, first_frame=ff) for mux in muxes)
+        want = jmux.step(*batch, first_frame=ff)
+        for g, p, w in zip(got, plain, want):
+            np.testing.assert_allclose(g, np.asarray(w), atol=ATOL_JAX)
+            np.testing.assert_allclose(g, p, atol=ATOL_PORT)
+
+
+@pytest.mark.parametrize("flag", ["pallas_inertial", "pallas_serve"])
 def test_multiplexer_refuses_kernel_flags(world, flag):
-    r"""The batched tick has no kernel: a kernel flag raises rather than
-    being ignored."""
+    r"""The batched tick runs no LSTM-scan or serve kernel: either flag
+    raises rather than being ignored."""
     _, tm, _, tp = world
     with pytest.raises(ValueError, match="pallas_"):
         StreamingMultiplexer(tp, tm, SigMPConfig(**{flag: True}),

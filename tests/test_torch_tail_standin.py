@@ -13,8 +13,16 @@ valid first translation, the floor ring's appends and snap, the live
 throttle's recompute and reuse, no landmarks, the snap of a far visual
 position, each with pose blendshapes off and on.
 
+The batched launch (``geometry_tail._launch_batched``, a grid of one block a
+row) runs the same way on three rows at once, each in another regime, against
+the batched plain version (``tail_batched``). The operator
+``robustcap::geometry_tail`` is checked here too: ``torch.library.opcheck``,
+and its CPU implementation against ``tail_plain`` row by row in every regime.
+
 Tolerance: 1e-4 absolute, as ``chip_smoke.py`` holds the kernel on the card:
-one frame of float32 math summed in another order. Counters equal.
+one frame of float32 math summed in another order. Counters equal. The
+operator's CPU implementation is ``tail_batched``, the same arithmetic as
+``tail_plain`` over a batch: 1e-5.
 """
 
 import numpy as np
@@ -152,3 +160,105 @@ def test_kernel_constant_layouts(consts):
                        pd.permute(0, 2, 1))
     assert not rows[:, 207:].any()
     assert consts[False]["pd_rows"] is None
+
+
+def _rows(cases):
+    r"""One-frame cases (``frame_case``) stacked as B rows, the frame flags
+    as ``[B]`` bool tensors."""
+    out = {k: torch.stack([a[k] for a in cases])
+           for k in ("out7", "out8", "c", "Rcr", "vr", "pc", "k_lerp")}
+    out["carry"] = {k: torch.stack([a["carry"][k] for a in cases])
+                    for k in cases[0]["carry"]}
+    out["frame"] = {k: torch.stack([torch.as_tensor(a["frame"][k])
+                                    for a in cases])
+                    for k in cases[0]["frame"]}
+    return out
+
+
+def _assert_fields(got, want, atol):
+    assert set(got) == set(want)
+    for field, w in want.items():
+        g = got[field]
+        assert g.shape == w.shape and g.dtype == w.dtype, field
+        if w.dtype in (torch.int32, torch.int64):
+            assert torch.equal(g, w), field
+        else:
+            err = float((g.double() - w.double()).abs().max())
+            assert err <= atol, (field, err)
+
+
+# one launch, three rows in three regimes: a first frame whose landmarks are
+# recomputed (occluded), a valid first translation reusing the throttled
+# landmarks (mid confidence), and a confident frame appending to a ring of
+# 10 and then snapping to the floor, landmarks recomputed
+BATCH_CFG = SigMPConfig(live=True, update_vision_freq=3, contact_threshold=0.2,
+                        height_threshold=5.0, conf_range=(0.5, 0.6))
+BATCH_ROWS = ((0.3, dict(first_frame=True), dict(vision_count=0)),
+              (0.55, dict(first_tran_valid=True), dict(vision_count=2)),
+              (0.95, {}, dict(floor_cnt=10, vision_count=0)))
+
+
+def _batch_case(rng):
+    cases = []
+    for i, (conf, flags, over) in enumerate(BATCH_ROWS):
+        a = frame_case(rng, i + 1, (conf,), {k: (v,) for k, v in
+                                             over.items()})
+        a["frame"].update({"first_frame": False, "first_tran_valid": False,
+                           **flags})
+        a["carry"]["has_pfoot"] = torch.tensor(True)
+        a["carry"]["has_tran"] = torch.tensor(True)
+        cases.append(a)
+    return cases
+
+
+@pytest.mark.parametrize("blendshape", [False, True], ids=["no_bs", "bs"])
+def test_standin_batched_rows_in_different_regimes(monkeypatch, standin_lib,
+                                                   consts, blendshape):
+    standin.use(monkeypatch, "geometry_tail", standin_lib)
+    monkeypatch.setattr(G, "LAUNCHES", 0)
+    k = consts[blendshape]
+    rng = np.random.RandomState(7 + blendshape)
+    for _ in range(3):
+        cases = _batch_case(rng)
+        rows = _rows(cases)
+        got = G._launch_batched(k, BATCH_CFG, **rows)
+        _assert_fields(got, G.tail_batched(k, BATCH_CFG, **rows), ATOL)
+        assert got["tran"].shape == (3, 3)
+        # each row's regime was reached
+        assert torch.equal(got["tran"][1], rows["frame"]["first_tran"][1])
+        assert int(got["floor_cnt"][2]) == 11
+        assert [int(v) for v in got["vision_count"]] == [3, 1, 3]
+    assert G.LAUNCHES == 3
+
+
+@pytest.mark.parametrize("blendshape", [False, True], ids=["no_bs", "bs"])
+def test_tail_operator_opcheck(consts, blendshape):
+    r"""``torch.library.opcheck`` on ``robustcap::geometry_tail`` at B=3,
+    without and with the posedirs: schema (no argument written), the fake's
+    shapes, types and strides against the CPU implementation, and
+    tracing."""
+    rows = _rows(_batch_case(np.random.RandomState(3)))
+    args = G._op_args(consts[blendshape], BATCH_CFG, **rows)
+    result = torch.library.opcheck(G.geometry_tail_op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("blendshape", [False, True], ids=["no_bs", "bs"])
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_tail_operator_matches_plain_rows(consts, regime, blendshape):
+    r"""Four frames of a regime as one call of the operator (CPU
+    implementation), equal to ``tail_batched`` (the constants it unpacks
+    from the packed body words are the same) and each row against
+    ``tail_plain`` on that frame; and ``geometry_tail`` (one frame through
+    the operator) the same."""
+    cfg, conf, over = REGIMES[regime]
+    k = consts[blendshape]
+    rng = np.random.RandomState(len(regime) + 200 * blendshape)
+    cases = [frame_case(rng, i, conf, over) for i in range(4)]
+    rows = _rows(cases)
+    got = G.geometry_tail_batched(k, cfg, **rows)
+    _assert_fields(got, G.tail_batched(k, cfg, **rows), 0.0)
+    for b, a in enumerate(cases):
+        want = G.tail_plain(k, cfg, **a)
+        _assert_fields({f: v[b] for f, v in got.items()}, want, 1e-5)
+        _assert_fields(G.geometry_tail(k, cfg, **a), want, 1e-5)
