@@ -495,7 +495,11 @@ def check_tail(models, dev, gen):
     return batched
 
 
-TAIL_BATCHES = (1, 8, 64)
+# rows of a batched launch: 1 a stream; 8 and 64 the multiplexer's
+# capacities; the evaluation's buckets: 2 and 3 (phase 7's fixture corpus,
+# phase 11 (b)'s ranks and unsharded run), 32 (run_sequences's default
+# max_bucket) and 512 (the JAX bench's batch)
+TAIL_BATCHES = (1, 2, 3, 8, 32, 64, 512)
 
 
 def _tail_rows(cases, dev):
@@ -516,19 +520,19 @@ def _tail_rows(cases, dev):
 
 def _check_tail_batched(consts, cfgs, dev, gen):
     r"""The batched launch (``geometry_tail_batched``, one block a row) at
-    B = 1, 8 and 64 against ``tail_batched`` on the card, every config with
-    blendshapes off and on; each launch's row 0 a first frame and row 1 a
-    valid first translation, the others in ``_tail_case``'s regimes. Then
-    each B's device time in a CUDA graph beside the plain version's, and
-    its bound. Returns the kernel-line numbers by B."""
+    each B of ``TAIL_BATCHES`` against ``tail_batched`` on the card, every
+    config with blendshapes off and on; each launch's row 0 a first frame
+    and row 1 a valid first translation, the others in ``_tail_case``'s
+    regimes. Then each B's device time in a CUDA graph beside the plain
+    version's, and its bound. Returns the kernel-line numbers by B."""
     import torch
     from robustcap_tpu_torch.config import SigMPConfig
     from robustcap_tpu_torch.ops.geometry_tail import (
         _op_args, geometry_tail_batched, tail_batched)
     res = {}
     for B in TAIL_BATCHES:
-        err, n_rows, reached = 0.0, 0, dict(first=0, first_tran=0, append=0,
-                                             snap=0, live_fk=0)
+        err, worst, n_rows = 0.0, None, 0
+        reached = dict(first=0, first_tran=0, append=0, snap=0, live_fk=0)
         for j in range(max(2, 16 // B) * len(cfgs) * 2):
             cfg = cfgs[j % len(cfgs)]
             k = (j // len(cfgs)) % 2
@@ -550,7 +554,8 @@ def _check_tail_batched(consts, cfgs, dev, gen):
                     _require(e <= TAIL_BOUND, f"batched tail B={B} launch "
                              f"{j} ({cfg}) {field}: {e:.3e} > "
                              f"{TAIL_BOUND:.0e}")
-                    err = max(err, e)
+                    if e > err:
+                        err, worst = e, field
             n_rows += B
             cnt0 = rows["carry"]["floor_cnt"]
             cmax = torch.sigmoid(rows["out8"]).amax(-1)
@@ -595,8 +600,9 @@ def _check_tail_batched(consts, cfgs, dev, gen):
         bound, by = _bound_ms(n_bytes, n_flops)
         print(f"[geometry_tail] batched B={B}: {n_rows} rows in "
               f"{n_rows // B} launches, every field within "
-              f"{TAIL_BOUND:.0e} of tail_batched (max {err:.3e}), counters "
-              f"equal; rows reached {reached}; device time in a CUDA graph: "
+              f"{TAIL_BOUND:.0e} of tail_batched (max {err:.3e}, {worst}), "
+              f"counters equal; rows reached {reached}; device time in a "
+              f"CUDA graph: "
               f"kernel {ms * 1e3:.2f} us/launch with blendshapes, "
               f"{ms_nobs * 1e3:.2f} us without, plain {plain_ms * 1e3:.1f} "
               f"us; bound {bound * 1e3:.4f} us ({by}, {n_bytes} bytes)",
@@ -1612,11 +1618,12 @@ EVAL_SEQ, EVAL_CAM, EVAL_T, EVAL_SEED = 1, 2, 64, 5
 EVAL_AGREE_MM = 0.5
 
 
-def check_eval(params, model, dev):
+def check_eval(params, model, dev, card):
     r"""Phase 7: ``evaluate_sequences`` (the batched runner) on a fixture
     corpus, then ``serve_end_metric_deltas`` in bf16 and int8, whose
-    changes from float32 must stay inside ``END_METRIC_BOUND_MM``. Returns
-    the serve-kernel launches of the phase by mode."""
+    changes from float32 must stay inside ``END_METRIC_BOUND_MM``, then
+    the runner with the tail kernel (:func:`check_eval_tail`). Returns the
+    phase's serve-kernel launches by mode and tail launches by rows."""
     import warnings
 
     import torch
@@ -1673,6 +1680,235 @@ def check_eval(params, model, dev):
         _require(abs(v - metrics[k]) < EVAL_AGREE_MM,
                  f"{k}: batched {metrics[k]:.3f} mm against single-stream "
                  f"{v:.3f} mm (bound {EVAL_AGREE_MM} mm)")
+    launches.update(check_eval_tail(params, model, dev, card, seqs, out))
+    return launches
+
+
+# the timed buckets: run_sequences's default max_bucket, the JAX bench's batch
+EVAL_TAIL_ROWS = (32, 512)
+EVAL_TAIL_T = 64
+
+
+def _synthetic_seqs(n, T):
+    r"""``n`` EvalSequences of ``T`` frames: phase 6's four synthetic
+    streams (seeds 20-23, mixed confidence with an occluded run) in turn,
+    every third seeded with a translation and the one after it marked a
+    first frame. The runner reads no ground truth."""
+    from robustcap_tpu_torch.eval.datasets import EvalSequence
+    from robustcap_tpu_torch.models.sig_mp import DEFAULT_GRAVITY
+    streams = [_stream_inputs(seed, _mixed(T, seed))
+               for seed in range(20, 24)]
+    seqs = []
+    for i in range(n):
+        j2dc, accc, oric = streams[i % 4]
+        seqs.append(EvalSequence(
+            name=f"synthetic_{i}", j2dc=j2dc, j2dc_px=j2dc, accc=accc,
+            oric=oric, pose_gt=np.tile(np.eye(3, dtype=np.float32),
+                                       (T, 24, 1, 1)),
+            tran_gt=np.zeros((T, 3), np.float32),
+            gravityc=np.tile(DEFAULT_GRAVITY, (T, 1)),
+            cam_K=np.eye(3, dtype=np.float32),
+            first_tran=(np.asarray([0.1, -0.2, 3.0], np.float32)
+                        if i % 3 == 0 else None),
+            first_frame=i % 3 == 1))
+    return seqs
+
+
+def _stacked(results):
+    r"""``run_sequences``'s per-sequence results as (pose, tran) tensors,
+    sequences end to end along the frame axis."""
+    import torch
+    return tuple(torch.from_numpy(np.concatenate(x)) for x in zip(*results))
+
+
+def _runner(params, model, cfg, seqs, dev):
+    r"""A call of ``run_sequences`` over ``seqs`` as one bucket."""
+    from robustcap_tpu_torch.eval import run_sequences
+    return lambda: run_sequences(params, model, cfg, seqs,
+                                 max_bucket=len(seqs),
+                                 pad_to_multiple=len(seqs[0].j2dc),
+                                 device=dev)
+
+
+def _time_runner(params, model, cfg, seqs, dev):
+    r"""``run_sequences`` over ``seqs`` as one bucket: a warm-up call, then
+    a call timed with CUDA events recorded around it (host stacking,
+    upload, prescan, the frame loop and the read-back). Returns the timed
+    call's results, its ms, and the tail launches (the wrapper's count) of
+    the timed call and of both."""
+    import torch
+    from robustcap_tpu_torch.ops import geometry_tail
+    run = _runner(params, model, cfg, seqs, dev)
+    n0 = geometry_tail.LAUNCHES
+    run()
+    torch.cuda.synchronize()
+    n1 = geometry_tail.LAUNCHES
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = run()
+    end.record()
+    torch.cuda.synchronize()
+    return (res, start.elapsed_time(end), geometry_tail.LAUNCHES - n1,
+            geometry_tail.LAUNCHES - n0)
+
+
+def _profile_runner(params, model, cfg, B, dev):
+    r"""Kernels and copies, device busy ms and tail kernels per frame-step
+    of ``run_sequences`` on one bucket of ``B`` synthetic rows, from
+    ``torch.profiler`` (:func:`_profile_top`): the difference between
+    buckets of 12 and 4 frames, over 8, so that the prescan and the
+    set-up cancel (a profile over fewer frames also parses faster). Each
+    bucket runs once before its profile. Returns also the tail launches
+    of the four calls. ``None`` where the profiler records no device
+    time."""
+    from robustcap_tpu_torch.ops import geometry_tail
+    n0 = geometry_tail.LAUNCHES
+    profs = []
+    for T in (4, 12):
+        run = _runner(params, model, cfg, _synthetic_seqs(B, T), dev)
+        run()
+        profs.append(_profile_top(run, 1))
+    launched = geometry_tail.LAUNCHES - n0
+    if None in profs:
+        return None, launched
+    (k4, _, busy4, _, by4), (k12, _, busy12, _, by12) = profs
+
+    def tails(by):
+        return sum(c for name, c in by.items()
+                   if "geometry_tail_kernel" in name)
+
+    return ((k12 - k4) / 8, (busy12 - busy4) / 8,
+             (tails(by12) - tails(by4)) / 8), launched
+
+
+def check_eval_tail(params, model, dev, card, seqs, plain):
+    r"""Phase 7 (b): the batched evaluation with ``cfg.pallas_tail``, whose
+    step runs the tail operator over each bucket's rows (two launches a
+    frame-step: the speculative and the final tail). ``evaluate_sequences``
+    on phase 7's corpus: the tail kernels counted by ``torch.profiler``
+    (a profile without device events fails) and by the wrapper, the
+    trajectories held against the flag-off run ``plain`` within phase 4's
+    bounds and the metrics within ``EVAL_AGREE_MM``. A bucket's step run
+    under ``set_sync_debug_mode("error")``. Then ``run_sequences`` timed
+    on one synthetic bucket of each ``EVAL_TAIL_ROWS`` rows x
+    ``EVAL_TAIL_T`` frames without and with the flag (in the order off,
+    on, on, off), the flagged run held against the flag-off one, and
+    profiled per frame-step (:func:`_profile_runner`). Returns the tail
+    launches by rows."""
+    import warnings
+
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.eval import (bucket_sequences,
+                                          evaluate_sequences, stack_frames)
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.nn.rnn import prepare_scan_params
+    from robustcap_tpu_torch.ops import geometry_tail
+
+    cfg = SigMPConfig(pallas_tail=True)
+    launches = {}
+    buckets = bucket_sequences(seqs, 32, EVAL_T)
+    for idx, _ in buckets:
+        key = f"geometry_tail_b{len(idx)}"
+        launches[key] = launches.get(key, 0) + 2 * max(
+            seqs[i].length for i in idx)
+    want = sum(launches.values())
+    got = {}
+    geometry_tail.LAUNCHES = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prof = _device_busy(lambda: got.update(evaluate_sequences(
+            seqs, params, model, cfg=cfg, pad_to_multiple=EVAL_T,
+            device=dev)), 1)
+    tails = _tail_calls(prof, "evaluate_sequences (pallas_tail)")
+    _require(tails == want and geometry_tail.LAUNCHES == want,
+             f"evaluate_sequences (pallas_tail): {tails:g} tail kernels "
+             f"(torch.profiler) and {geometry_tail.LAUNCHES} launches, "
+             f"expected {want}: 2 a frame-step of each bucket")
+    ok = True
+    for i, s in enumerate(seqs):
+        ok &= _compare(
+            f"evaluate_sequences {s.name} ({s.length} frames): pallas_tail "
+            "against the plain tail (card)",
+            _stacked([(got["pose_p"][i], got["tran_p"][i])]),
+            _stacked([(plain["pose_p"][i], plain["tran_p"][i])]))
+    _require(ok, "evaluate_sequences with pallas_tail outside phase 4's "
+             "bounds against the plain tail (see the lines above)")
+    gaps = {k: abs(got[k] - plain[k]) * 1e3
+            for k in ("mpjpe", "pve", "pampjpe", "tran_error")}
+    _require(all(v < EVAL_AGREE_MM for v in gaps.values()),
+             f"evaluate_sequences with pallas_tail: metrics moved {gaps} "
+             f"mm from the plain tail (bound {EVAL_AGREE_MM} mm)")
+    print(f"[eval] (b) evaluate_sequences with pallas_tail, "
+          f"{len(buckets)} bucket(s) of {[len(i) for i, _ in buckets]} "
+          f"rows: {tails:g} tail kernels (torch.profiler), "
+          f"{geometry_tail.LAUNCHES} launches, expected {want}; metrics "
+          f"against the plain tail "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" mm (bound {EVAL_AGREE_MM}); {prof[0]:.0f} kernels and "
+          f"copies, {prof[1]:.3f} ms of device time with scoring",
+          flush=True)
+
+    # a bucket's step with the flag reads nothing back to the host
+    bucket = _synthetic_seqs(EVAL_TAIL_ROWS[0], EVAL_TAIL_T)
+    frames = {k: v.to(dev) for k, v in stack_frames(bucket,
+                                                    EVAL_TAIL_T).items()}
+    step = sig_mp.make_batched_step(model, cfg)
+    prepped = prepare_scan_params(params, False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sig_mp._offline_batched(step, prepped, model, False, frames, None,
+                                dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[eval] (b) a bucket of {EVAL_TAIL_ROWS[0]} rows x {EVAL_TAIL_T} "
+          "frames through the runner's step with pallas_tail, frames on the "
+          "card: no synchronizing call (set_sync_debug_mode('error'))",
+          flush=True)
+
+    T = EVAL_TAIL_T
+    for B in EVAL_TAIL_ROWS:
+        bucket = _synthetic_seqs(B, T)
+        key = f"geometry_tail_b{B}"
+        runs = {False: [], True: []}
+        for flag in (False, True, True, False):
+            res, ms, timed, n = _time_runner(
+                params, model, SigMPConfig(pallas_tail=flag), bucket, dev)
+            _require(timed == (2 * T if flag else 0),
+                     f"run_sequences B={B} pallas_tail={flag}: {timed} tail "
+                     f"launches, expected {2 * T if flag else 0}")
+            runs[flag].append((res, ms))
+            launches[key] = launches.get(key, 0) + n
+        texts = {}
+        for flag, ((_, ms), (_, ms2)) in runs.items():
+            prof, n = _profile_runner(params, model,
+                                      SigMPConfig(pallas_tail=flag), B, dev)
+            launches[key] += n
+            _require(prof is not None, f"run_sequences B={B}: "
+                     "torch.profiler recorded no device event, so the tail "
+                     "kernels were not counted")
+            n_k, busy, tails = prof
+            _require(abs(tails - (2 if flag else 0)) < 1e-9,
+                     f"run_sequences B={B} pallas_tail={flag}: {tails:g} "
+                     f"tail kernels a frame-step (torch.profiler), expected "
+                     f"{2 if flag else 0}")
+            texts[flag] = (
+                f"pallas_tail={flag}: {ms / T:.3f} / {ms2 / T:.3f} ms a "
+                f"frame-step (CUDA events, two calls of {T} frames), "
+                f"{n_k:.1f} kernels and copies and {busy:.4f} ms of device "
+                f"time a frame-step (torch.profiler, 12 frames less 4), "
+                f"{tails:g} tail kernels a frame-step, device idle "
+                f"{max(0.0, 1 - busy / (ms / T)) * 100:.1f}% of the first "
+                "call's frame-step")
+        _require(_compare(
+            f"run_sequences B={B} T={T}: pallas_tail against the plain tail "
+            "(card)", _stacked(runs[True][0][0]), _stacked(runs[False][0][0])),
+            f"run_sequences B={B}: pallas_tail outside phase 4's bounds")
+        print(f"[eval] (b) run_sequences, one bucket of {B} rows x {T} "
+              f"frames, {card}: {texts[False]}; {texts[True]}", flush=True)
     return launches
 
 
@@ -2874,6 +3110,7 @@ GLOO_SHARE = 0.1       # sharded refinement: share of the refinement's move
 GLOO_SGD_LR = 0.1
 GLOO_MODULE = "rnn2"
 GLOO_SEED = 14
+GLOO_T = 64            # frames of each of the three evaluation sequences
 # train(mesh=) in the gloo children: rank 0's validation values improve
 # twice, then rise, so early stop (threshold 2) ends the first run at the
 # fourth validation and the plateau (patience 0) scales the lr at the third;
@@ -3045,7 +3282,7 @@ def _gloo_world(dev):
     model = ParametricModel(data=data, device=dev)
     params = sig_mp.init_params(torch.Generator().manual_seed(0), device=dev)
     seqs = build_aist_sequences(build_fixture_dataset(
-        model, n_seq=3, T=64, n_cam=1, seed=GLOO_SEED))
+        model, n_seq=3, T=GLOO_T, n_cam=1, seed=GLOO_SEED))
     model64 = ParametricModel(data=data, dtype=torch.float64, device=dev)
     prior64 = MaxMixturePrior(None, device=dev, dtype=torch.float64)
     return params, model, seqs, model64, prior64
@@ -3053,16 +3290,22 @@ def _gloo_world(dev):
 
 def _gloo_run(params, model, seqs, model64, prior64, dev, mesh=None):
     r"""``run_sequences`` then the float64 refinement of its output (one
-    group of four lanes: three sequences and a padded one)."""
+    group of four lanes: three sequences and a padded one), and
+    ``run_sequences`` again with ``cfg.pallas_tail``. Returns the three
+    results and the tail launches of the last run."""
     from robustcap_tpu_torch.config import SigMPConfig
     from robustcap_tpu_torch.eval import run_sequences
+    from robustcap_tpu_torch.ops import geometry_tail
     from robustcap_tpu_torch.smplify import refine_sequences_batched
     res = run_sequences(params, model, SigMPConfig(), seqs, device=dev,
                         mesh=mesh)
     refined = refine_sequences_batched(res, seqs, model=model64,
                                        prior=prior64, group_size=4,
                                        device=dev, mesh=mesh)
-    return res, refined
+    n0 = geometry_tail.LAUNCHES
+    tail = run_sequences(params, model, SigMPConfig(pallas_tail=True), seqs,
+                         device=dev, mesh=mesh)
+    return res, refined, tail, geometry_tail.LAUNCHES - n0
 
 
 def _gloo_train(mesh, save_dir):
@@ -3162,10 +3405,12 @@ def gloo_child(port, rank, out, device):
                                               "train")))
     got["train_s"] = time.perf_counter() - t0
     world = _gloo_world(dev)
-    res, refined = _gloo_run(*world, dev, mesh)
-    for i, ((p, t), (rp, rt)) in enumerate(zip(res, refined)):
+    res, refined, tail, got["tail_launches"] = _gloo_run(*world, dev, mesh)
+    for i, ((p, t), (rp, rt), (tp, tt)) in enumerate(zip(res, refined,
+                                                         tail)):
         got[f"pose{i}"], got[f"tran{i}"] = p, t
         got[f"rpose{i}"], got[f"rtran{i}"] = rp, rt
+        got[f"tpose{i}"], got[f"ttran{i}"] = tp, tt
     np.savez(out, **got)
     return 0
 
@@ -3222,9 +3467,10 @@ def _spawn(args_list, timeout):
 def check_parallel_gloo(model, dev, card):
     r"""Phase 11 (b): two ranks sharing the card over gloo (two spawned
     processes, with a timeout), held against one process: the DP step of
-    rnn2 with unequal lengths, ``run_sequences(mesh=)`` and the float64
-    ``refine_sequences_batched(mesh=)``; two more processes that ask NCCL
-    for two ranks on the card must be refused."""
+    rnn2 with unequal lengths, ``run_sequences(mesh=)`` without and with
+    ``cfg.pallas_tail`` and the float64 ``refine_sequences_batched(mesh=)``;
+    two more processes that ask NCCL for two ranks on the card must be
+    refused. Returns the tail launches by rows."""
     import tempfile
 
     import torch
@@ -3259,7 +3505,7 @@ def check_parallel_gloo(model, dev, card):
             ref[label] = (loss, after.cpu().numpy(),
                           float((after - before).abs().max()))
         world = _gloo_world(dev)
-        res, refined = _gloo_run(*world, dev)
+        res, refined, tail, tail_launches = _gloo_run(*world, dev)
         start = [(p.astype(np.float64), t.astype(np.float64))
                  for p, t in res]
         runner.join()
@@ -3291,6 +3537,16 @@ def check_parallel_gloo(model, dev, card):
                        for i, (p, t) in enumerate(res))
         _require(eval_gap <= GLOO_EVAL, f"gloo rank {r}: run_sequences "
                  f"sharded against unsharded {eval_gap:.2e}")
+        tail_gap = max(max(float(np.abs(got[f"tpose{i}"] - p).max()),
+                           float(np.abs(got[f"ttran{i}"] - t).max()))
+                       for i, (p, t) in enumerate(tail))
+        _require(tail_gap <= GLOO_EVAL, f"gloo rank {r}: run_sequences "
+                 f"with pallas_tail sharded against unsharded "
+                 f"{tail_gap:.2e}")
+        # two rows a rank (three sequences padded to four), one bucket
+        n_tail = int(got["tail_launches"])
+        _require(n_tail == 2 * GLOO_T, f"gloo rank {r}: {n_tail} tail "
+                 f"launches with pallas_tail, expected {2 * GLOO_T}")
         shares = []
         for i, ((rp, rt), (p0, t0_)) in enumerate(zip(refined, start)):
             moved = max(float(np.abs(rp - p0).max()),
@@ -3303,7 +3559,9 @@ def check_parallel_gloo(model, dev, card):
             shares.append(gap / moved)
         out[r] = dict(loss_gap=loss_gap, param_share=p_gap,
                       f32_gaps=gaps["sgd32"],
-                      eval_gap=eval_gap, refine_share=max(shares),
+                      eval_gap=eval_gap, tail_gap=tail_gap,
+                      tail_launches=n_tail,
+                      refine_share=max(shares),
                       step_ms=float(got["step_ms"]),
                       allreduce_ms=float(got["allreduce_ms"]),
                       grad_bytes=int(got["grad_bytes"]))
@@ -3338,7 +3596,12 @@ def check_parallel_gloo(model, dev, card):
           f"Adam's parameters (float32) equal on both ranks; "
           f"run_sequences sharded (3 sequences, padded to 4) "
           f"{max(v['eval_gap'] for v in out.values()):.2e} from unsharded "
-          f"(bound {GLOO_EVAL}); float64 refinement sharded "
+          f"(bound {GLOO_EVAL}), with pallas_tail "
+          f"{max(v['tail_gap'] for v in out.values()):.2e} (bound "
+          f"{GLOO_EVAL}; tail launches "
+          f"{[v['tail_launches'] for v in out.values()]} of 2 rows a rank, "
+          f"{tail_launches} of 3 rows unsharded); "
+          f"float64 refinement sharded "
           f"{max(v['refine_share'] for v in out.values()):.2e} of its move "
           f"(bound {GLOO_SHARE}); train(mesh=) of full-width "
           f"{GLOO_MODULE}: early stop and the plateau at rank 0's "
@@ -3353,7 +3616,12 @@ def check_parallel_gloo(model, dev, card):
           f"(host clock, median of 5); NCCL with two ranks on the card "
           f"refused: {[o.strip()[9:80] for rc, o, _ in spawned[2:]]}; "
           f"phase 11 (b) in {time.perf_counter() - t0:.1f} s", flush=True)
-    return out
+    _require(tail_launches == 2 * GLOO_T, f"gloo: unsharded run with "
+             f"pallas_tail: {tail_launches} tail launches, expected "
+             f"{2 * GLOO_T}")
+    return {"geometry_tail_b2": sum(v["tail_launches"]
+                                    for v in out.values()),
+            "geometry_tail_b3": tail_launches}
 
 
 def _imu_vertices(model, R, tran, shape=None):
@@ -4346,7 +4614,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(smi.stdout.strip(), flush=True)
+    card = smi.stdout.strip()
+    print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -4378,8 +4647,8 @@ def main():
     phase(6)
     check_batched(params, model, dev)
     phase(7)
-    for key, n in check_eval(params, model, dev).items():
-        launches[key] += n
+    for key, n in check_eval(params, model, dev, card).items():
+        launches[key] = launches.get(key, 0) + n
     phase(8)
     serving, replayed = check_serving(params, model, dev)
     for key, n in serving.items():
@@ -4396,9 +4665,9 @@ def main():
           flush=True)
     phase(11)
     t11 = time.perf_counter()
-    card = smi.stdout.strip()
     check_parallel_nccl(model, dev, card)
-    check_parallel_gloo(model, dev, card)
+    for key, n in check_parallel_gloo(model, dev, card).items():
+        launches[key] = launches.get(key, 0) + n
     check_preprocess(model, dev, card)
     print(f"[parallel] phase 11 in {time.perf_counter() - t11:.1f} s",
           flush=True)
@@ -4427,7 +4696,8 @@ def main():
              operator="robustcap::geometry_tail",
              source="robustcap_tpu_torch/csrc/geometry_tail.cu",
              replaces="robustcap_tpu/ops/pallas_tail.py:468",
-             launches=launches[name], replayed=replayed[name], **row)
+             launches=launches.get(name, 0), replayed=replayed.get(name, 0),
+             **row)
         for B, row in tail.items()
         for name in ["geometry_tail" if B == 1 else f"geometry_tail_b{B}"]]
     kernels += [

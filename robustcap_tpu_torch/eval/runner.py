@@ -1,8 +1,9 @@
 r"""The batched offline runner (port of ``robustcap_tpu/eval/runner.py``):
-sequences grouped into buckets of one padded length, each bucket one
-``forward_offline_batched`` run of B rows, outputs cut back to each
-sequence's length; with a data mesh each rank runs its rows of every
-bucket."""
+sequences grouped into buckets of one padded length, each bucket one run of
+the batched step (``sig_mp.make_batched_step``, built from the caller's
+``cfg`` as the JAX runner builds its vmapped step) over B rows, outputs cut
+back to each sequence's length; with a data mesh each rank runs its rows of
+every bucket."""
 
 from __future__ import annotations
 
@@ -62,7 +63,10 @@ def run_sequences(params, body_model, cfg: SigMPConfig,
     to its length, in input order. Params and body model must already be
     on ``device``. A bucket runs up to its longest sequence, and every
     bucket is queued on the device before the first result is read
-    back.
+    back. With ``cfg.pallas_tail`` each tail of each frame-step is one call
+    of the operator ``robustcap::geometry_tail`` over the bucket's rows (one
+    kernel launch on the card, two a frame-step with the vision updater);
+    the other ``pallas_*`` flags are not read.
 
     With ``mesh`` (``parallel.make_mesh``; ``device`` is then the mesh's)
     a bucket is padded by repeating its last sequence until the ranks
@@ -70,6 +74,7 @@ def run_sequences(params, body_model, cfg: SigMPConfig,
     the whole list."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     params = prepare_scan_params(params, cfg.int8_compute)
+    step = sig_mp.make_batched_step(body_model, cfg)
     pending = []
     for indices, pad_len in bucket_sequences(seqs, max_bucket,
                                              pad_to_multiple):
@@ -78,9 +83,9 @@ def run_sequences(params, body_model, cfg: SigMPConfig,
             batch += [batch[-1]] * (-len(batch) % mesh.size)
             batch = batch[mesh.rows(len(batch))]
         frames = stack_frames(batch, pad_len, first_tran_mode)
-        pending.append((indices, sig_mp.forward_offline_batched(
-            params, body_model, cfg, frames,
-            lengths=[s.length for s in batch], device=dev)))
+        pending.append((indices, sig_mp._offline_batched(
+            step, params, body_model, cfg.int8_compute, frames,
+            [s.length for s in batch], dev)))
     results: List = [None] * len(seqs)
     for indices, (pose, tran) in pending:
         if mesh is not None:

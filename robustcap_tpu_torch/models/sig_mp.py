@@ -4,9 +4,10 @@ Port of ``robustcap_tpu/models/sig_mp.py``. The per-frame computation is a
 function ``step(params, carry, frame) -> (carry, (pose [24,3,3], tran [3]))``
 with the JAX package's carry and frame layouts, and ``forward_offline`` and
 ``StreamingNet`` drive it over a sequence or a stream. PyTorch runs eagerly,
-so a scan is a Python loop over frames. ``forward_offline_batched`` runs B
-sequences at once through :func:`make_batched_step`, the branchless steady
-step over a leading batch axis (see the last point below).
+so a scan is a Python loop over frames. ``forward_offline_batched`` and the
+batched evaluation (``eval.runner.run_sequences``) run B sequences at once
+through :func:`make_batched_step`, the branchless steady step over a
+leading batch axis (see the last point below).
 
 What differs from the JAX step, with the same values:
 
@@ -38,7 +39,8 @@ Network bank — all 2-layer LSTMs, torch-layout params:
 
 ``cfg.pallas_tail`` runs the geometry tail through its CUDA kernel
 (``ops/geometry_tail.py``, the operator ``robustcap::geometry_tail``) in the
-per-frame and the batched step, ``cfg.pallas_inertial`` the rnn2/rnn3 chunk
+per-frame and the batched step (``forward_offline_batched`` turns it off,
+as the JAX one does), ``cfg.pallas_inertial`` the rnn2/rnn3 chunk
 pre-scan through the LSTM-scan kernel (``ops/lstm_scan.py``), and
 ``cfg.pallas_serve`` the whole steady step of ``forward_offline`` and
 ``StreamingNet.forward_chunk`` through the serve kernel
@@ -819,6 +821,31 @@ _BATCH_FIELDS = {"j2dc": torch.float32, "accc": torch.float32,
                  "first_tran_valid": torch.bool}
 
 
+def _offline_batched(step, params, body_model, int8_compute, frames_batched,
+                     lengths, dev):
+    r"""The batched prescan, then ``step`` (a :func:`make_batched_step`)
+    frame after frame up to ``max(lengths)``, outputs stacked over frames:
+    the loop of :func:`forward_offline_batched` and of each bucket of
+    ``eval.runner.run_sequences``. Params (already through
+    ``prepare_scan_params``) and body model must be on ``dev``."""
+    _require_device(params, body_model, dev)
+    frames = {k: torch.as_tensor(frames_batched[k], dtype=dt, device=dev)
+              for k, dt in _BATCH_FIELDS.items()}
+    B, T = frames["j2dc"].shape[:2]
+    if lengths is not None:
+        T = max(int(n) for n in lengths)
+    carry = prescan_first_frame(
+        params, body_model, init_carry(params, batch_shape=(B,)),
+        {k: v[:, 0] for k, v in frames.items()}, int8_compute)
+    poses, trans = [], []
+    for t in range(T):
+        carry, (pose, tran) = step(params, carry,
+                                   {k: v[:, t] for k, v in frames.items()})
+        poses.append(pose)
+        trans.append(tran)
+    return torch.stack(poses, 1), torch.stack(trans, 1)
+
+
 def forward_offline_batched(params, body_model, cfg, frames_batched,
                             lengths: Optional[Sequence[int]] = None,
                             device="cuda"):
@@ -833,31 +860,20 @@ def forward_offline_batched(params, body_model, cfg, frames_batched,
     run. A row's frames past its own length are padding, which the caller
     discards; the step is causal, so they change no valid frame.
 
-    No kernel runs here, as in the JAX package's batched path: ``cfg``'s
-    ``pallas_tail`` is turned off before the step is built, and the other
-    ``pallas_*`` flags are not read. Params and body model must
-    already be on ``device``; with frames already there too, the run reads
-    nothing back to the host once the body model has been seen."""
+    No kernel runs here, as in the JAX package's ``forward_offline_batched``:
+    ``cfg``'s ``pallas_tail`` is turned off before the step is built, and
+    the other ``pallas_*`` flags are not read. The batched evaluation
+    (``eval.runner.run_sequences``) builds its step from the caller's
+    ``cfg`` instead and keeps the tail kernel, as the JAX runner does.
+    Params and body model must already be on ``device``; with frames
+    already there too, the run reads nothing back to the host once the
+    body model has been seen."""
     dev = resolve_device(device)
-    _require_device(params, body_model, dev)
-    params = prepare_scan_params(params, cfg.int8_compute)
-    frames = {k: torch.as_tensor(frames_batched[k], dtype=dt, device=dev)
-              for k, dt in _BATCH_FIELDS.items()}
-    B, T = frames["j2dc"].shape[:2]
-    if lengths is not None:
-        T = max(int(n) for n in lengths)
     step = make_batched_step(body_model,
                              dataclasses.replace(cfg, pallas_tail=False))
-    carry = prescan_first_frame(
-        params, body_model, init_carry(params, batch_shape=(B,)),
-        {k: v[:, 0] for k, v in frames.items()}, cfg.int8_compute)
-    poses, trans = [], []
-    for t in range(T):
-        carry, (pose, tran) = step(params, carry,
-                                   {k: v[:, t] for k, v in frames.items()})
-        poses.append(pose)
-        trans.append(tran)
-    return torch.stack(poses, 1), torch.stack(trans, 1)
+    params = prepare_scan_params(params, cfg.int8_compute)
+    return _offline_batched(step, params, body_model, cfg.int8_compute,
+                            frames_batched, lengths, dev)
 
 
 class StreamingNet:

@@ -1,18 +1,20 @@
 r"""The port's offline evaluation against the JAX package's: fixture corpora,
 sequence building, bucketing and padding, Procrustes, the metric suite,
-``evaluate_sequences`` with its caches, the contact evaluation, and the
-serve kernel's end-metric contract.
+``evaluate_sequences`` with its caches, the runner under ``pallas_tail``,
+the contact evaluation, and the serve kernel's end-metric contract.
 
 Both packages get the same numpy inputs and the same weights (JAX
 ``init_params``, carried across with ``params_from_numpy``); the JAX serve
-kernel runs in Pallas interpret mode, the port's serve path its plain
-version. Tolerances are stated where they are used: what numpy computes
-on the host is held equal; what the body math computes in float32 within
-1e-5 (positions, metres) or one float32 rounding of a rotation entry
-(1e-6); metrics within 1e-5 m; PA-MPJPE (float64 on the host on both
-sides) within rtol 1e-9.
+and tail kernels run in Pallas interpret mode, the port's serve path its
+plain version and its tail operator its CPU implementation. Tolerances
+are stated where they are used: what numpy computes on the host is held
+equal; what the body math computes in float32 within 1e-5 (positions,
+metres) or one float32 rounding of a rotation entry (1e-6); metrics
+within 1e-5 m; PA-MPJPE (float64 on the host on both sides) within rtol
+1e-9.
 """
 
+import collections
 import json
 import os
 import pickle
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from robustcap_tpu import config as JC
 from robustcap_tpu.eval import contacts as jcontacts
@@ -41,6 +44,7 @@ from robustcap_tpu_torch.eval import evaluator as tev
 from robustcap_tpu_torch.eval import runner as trunner
 from robustcap_tpu_torch.eval.quality import (END_METRIC_BOUND_MM,
                                               serve_end_metric_deltas)
+from robustcap_tpu_torch.models import sig_mp as tsig
 from robustcap_tpu_torch.ops import procrustes as tproc
 from robustcap_tpu_torch.preprocess import fixtures as tfix
 from robustcap_tpu_torch.smpl import ParametricModel, synthetic_smpl_data
@@ -376,6 +380,59 @@ def test_evaluate_sequences_matches_jax(evaluated):
     np.testing.assert_allclose(got["full_motion"],
                                np.asarray(want["full_motion"]),
                                rtol=1e-3, atol=1e-3)
+
+
+class _OpCounts(TorchDispatchMode):
+    r"""Counts the operators dispatched under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[func.name()] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("pallas_tail", [False, True])
+def test_runner_keeps_pallas_tail(world, evaluated, pallas_tail):
+    r"""``run_sequences`` and ``evaluate_sequences`` build their step from
+    the caller's ``cfg``, as the JAX runner does: with ``pallas_tail`` one
+    bucket of both views (32 frames, ``max_bucket=2``) dispatches the tail
+    operator ``robustcap::geometry_tail`` twice a frame-step (speculative
+    and final tail), 64 times, where the JAX runner runs its Pallas tail
+    under ``vmap`` (interpret mode here, one bucket of two); without it,
+    none, against the JAX run of ``evaluated`` (buckets of one: the rows
+    are independent). JAX's trajectories are its runner's, as its
+    ``evaluate_sequences`` returns them: translation within 1e-5 m,
+    rotation entries within 5e-4, metrics within 1e-5 m. On the CPU the
+    operator is ``tail_batched``, so either run is
+    ``forward_offline_batched``'s (which turns the flag off) bit for bit:
+    the flag-off route is unchanged."""
+    jm, tm, jp, tp, ds = world
+    js, ts, want, _ = evaluated
+    kw = dict(pad_to_multiple=16, max_bucket=2)
+    if pallas_tail:
+        want = jeval.evaluate_sequences(
+            js, params=jp, model=jm, cfg=JC.SigMPConfig(pallas_tail=True),
+            **kw)
+    cfg = TC.SigMPConfig(pallas_tail=pallas_tail)
+    with _OpCounts() as ops:
+        runs = trunner.run_sequences(tp, tm, cfg, ts, device="cpu", **kw)
+    assert ops.n["robustcap::geometry_tail"] == (64 if pallas_tail else 0)
+    for (pose, tran), wp, wt in zip(runs, want["pose_p"], want["tran_p"]):
+        np.testing.assert_allclose(tran, np.asarray(wt), atol=ATOL_M)
+        np.testing.assert_allclose(pose, np.asarray(wp), atol=5e-4)
+    plain = tsig.forward_offline_batched(
+        tp, tm, cfg, trunner.stack_frames(ts, 32), lengths=[32, 32],
+        device="cpu")
+    for b, (pose, tran) in enumerate(runs):
+        np.testing.assert_array_equal(pose, plain[0][b].numpy())
+        np.testing.assert_array_equal(tran, plain[1][b].numpy())
+    got = teval.evaluate_sequences(ts, params=tp, model=tm, cfg=cfg,
+                                   device="cpu", **kw)
+    for k in ("mpjpe", "pve", "pampjpe", "tran_error"):
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL_M)
 
 
 @pytest.mark.parametrize("layout", ["result4", "result2"])
