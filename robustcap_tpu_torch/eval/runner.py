@@ -12,6 +12,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SigMPConfig
 from ..device import resolve_device
 from ..models import sig_mp
@@ -72,26 +73,29 @@ def run_sequences(params, body_model, cfg: SigMPConfig,
     a bucket is padded by repeating its last sequence until the ranks
     divide it, each rank runs its rows, and every rank gathers and returns
     the whole list."""
-    dev = mesh.device if mesh is not None else resolve_device(device)
-    params = prepare_scan_params(params, cfg.int8_compute)
-    step = sig_mp.make_batched_step(body_model, cfg)
-    pending = []
-    for indices, pad_len in bucket_sequences(seqs, max_bucket,
-                                             pad_to_multiple):
-        batch = [seqs[i] for i in indices]
-        if mesh is not None:
-            batch += [batch[-1]] * (-len(batch) % mesh.size)
-            batch = batch[mesh.rows(len(batch))]
-        frames = stack_frames(batch, pad_len, first_tran_mode)
-        pending.append((indices, sig_mp._offline_batched(
-            step, params, body_model, cfg.int8_compute, frames,
-            [s.length for s in batch], dev)))
-    results: List = [None] * len(seqs)
-    for indices, (pose, tran) in pending:
-        if mesh is not None:
-            pose, tran = mesh.gather(pose), mesh.gather(tran)
-        pose, tran = pose.cpu().numpy(), tran.cpu().numpy()
-        for k, i in enumerate(indices):
-            T = seqs[i].length
-            results[i] = (pose[k, :T], tran[k, :T])
-    return results
+    with trace.span("runner"):
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        params = prepare_scan_params(params, cfg.int8_compute)
+        step = sig_mp.make_batched_step(body_model, cfg)
+        pending = []
+        for indices, pad_len in bucket_sequences(seqs, max_bucket,
+                                                 pad_to_multiple):
+            batch = [seqs[i] for i in indices]
+            if mesh is not None:
+                batch += [batch[-1]] * (-len(batch) % mesh.size)
+                batch = batch[mesh.rows(len(batch))]
+            with trace.span("runner.stack"):
+                frames = stack_frames(batch, pad_len, first_tran_mode)
+            pending.append((indices, sig_mp._offline_batched(
+                step, params, body_model, cfg.int8_compute, frames,
+                [s.length for s in batch], dev)))
+        results: List = [None] * len(seqs)
+        for indices, (pose, tran) in pending:
+            if mesh is not None:
+                pose, tran = mesh.gather(pose), mesh.gather(tran)
+            with trace.span("runner.readback"):
+                pose, tran = pose.cpu().numpy(), tran.cpu().numpy()
+            for k, i in enumerate(indices):
+                T = seqs[i].length
+                results[i] = (pose[k, :T], tran[k, :T])
+        return results

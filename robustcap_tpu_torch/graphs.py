@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from . import trace
 from .device import tree_map
 
 __all__ = ["GraphedStep"]
@@ -97,13 +98,16 @@ class GraphedStep:
         if not self._cuda:
             self._carry, out = self.step(self.params, self._carry, frame)
             return out
-        if self._graph is None:
-            self._capture(frame)
-        else:
-            _copy_into(self._frame, frame)
-        self._graph.replay()
-        self.replays += 1
-        return tree_map(torch.clone, self._out)
+        captured = self._graph is None
+        if captured:
+            with trace.span("graph.capture"):
+                self._capture(frame)
+        with trace.span("graph.replay"):
+            if not captured:
+                _copy_into(self._frame, frame)
+            self._graph.replay()
+            self.replays += 1
+            return tree_map(torch.clone, self._out)
 
     def _capture(self, frame):
         dev = self.device

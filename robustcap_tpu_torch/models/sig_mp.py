@@ -61,6 +61,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SigMPConfig
 from ..device import resolve_device, tree_map
 from ..math.general import lerp
@@ -789,30 +790,39 @@ def forward_offline(params, body_model, cfg, j2dc, accc, oric,
     ``return_contacts``, and then the raw rnn7 head ``[T, 144]`` with
     ``return_r6d`` (the plain step only: the serve kernel does not keep
     it). Params and body model must already be on ``device``."""
-    if return_r6d and cfg.pallas_serve:
-        raise ValueError("return_r6d requires the plain step "
-                         "(cfg.pallas_serve=False)")
-    _check_cfg(cfg)
-    dev = resolve_device(device)
-    _require_device(params, body_model, dev)
-    params = prepare_scan_params(params, cfg.int8_compute)
-    frames = _sequence_frames(j2dc, accc, oric, first_tran, first_frame,
-                              gravityc, dev)
-    carry = prescan_first_frame(params, body_model, init_carry(params),
-                                _frame_at(frames, 0), cfg.int8_compute)
-    if cfg.pallas_serve:
-        pose, tran, contact, _ = serve_scan(
-            serve_params_for(params, cfg), tail_constants(body_model), cfg,
-            frames, carry)
-        return (pose, tran, contact) if return_contacts else (pose, tran)
-    step = make_step(body_model, cfg, include_first_frame_step=False,
-                     output_contacts=return_contacts, cond_updater=True,
-                     output_r6d=return_r6d)
-    outs = []
-    for t in range(len(frames["conf"])):
-        carry, out = step(params, carry, _frame_at(frames, t))
-        outs.append(out)
-    return _stack_outputs(outs)
+    with trace.span("offline"):
+        if return_r6d and cfg.pallas_serve:
+            raise ValueError("return_r6d requires the plain step "
+                             "(cfg.pallas_serve=False)")
+        _check_cfg(cfg)
+        dev = resolve_device(device)
+        _require_device(params, body_model, dev)
+        with trace.span("offline.inputs"):
+            params = prepare_scan_params(params, cfg.int8_compute)
+            frames = _sequence_frames(j2dc, accc, oric, first_tran,
+                                      first_frame, gravityc, dev)
+        with trace.span("offline.prescan"):
+            carry = prescan_first_frame(params, body_model,
+                                        init_carry(params),
+                                        _frame_at(frames, 0),
+                                        cfg.int8_compute)
+        if cfg.pallas_serve:
+            with trace.span("offline.repack"):
+                prepped = serve_params_for(params, cfg)
+                consts = tail_constants(body_model)
+            with trace.span("offline.launch"):
+                pose, tran, contact, _ = serve_scan(prepped, consts, cfg,
+                                                    frames, carry)
+            return (pose, tran, contact) if return_contacts else (pose, tran)
+        step = make_step(body_model, cfg, include_first_frame_step=False,
+                         output_contacts=return_contacts, cond_updater=True,
+                         output_r6d=return_r6d)
+        with trace.span("offline.loop"):
+            outs = []
+            for t in range(len(frames["conf"])):
+                carry, out = step(params, carry, _frame_at(frames, t))
+                outs.append(out)
+            return _stack_outputs(outs)
 
 
 _BATCH_FIELDS = {"j2dc": torch.float32, "accc": torch.float32,
@@ -829,21 +839,24 @@ def _offline_batched(step, params, body_model, int8_compute, frames_batched,
     ``eval.runner.run_sequences``. Params (already through
     ``prepare_scan_params``) and body model must be on ``dev``."""
     _require_device(params, body_model, dev)
-    frames = {k: torch.as_tensor(frames_batched[k], dtype=dt, device=dev)
-              for k, dt in _BATCH_FIELDS.items()}
+    with trace.span("batched.upload"):
+        frames = {k: torch.as_tensor(frames_batched[k], dtype=dt, device=dev)
+                  for k, dt in _BATCH_FIELDS.items()}
     B, T = frames["j2dc"].shape[:2]
     if lengths is not None:
         T = max(int(n) for n in lengths)
-    carry = prescan_first_frame(
-        params, body_model, init_carry(params, batch_shape=(B,)),
-        {k: v[:, 0] for k, v in frames.items()}, int8_compute)
-    poses, trans = [], []
-    for t in range(T):
-        carry, (pose, tran) = step(params, carry,
-                                   {k: v[:, t] for k, v in frames.items()})
-        poses.append(pose)
-        trans.append(tran)
-    return torch.stack(poses, 1), torch.stack(trans, 1)
+    with trace.span("batched.prescan"):
+        carry = prescan_first_frame(
+            params, body_model, init_carry(params, batch_shape=(B,)),
+            {k: v[:, 0] for k, v in frames.items()}, int8_compute)
+    with trace.span("batched.loop"):
+        poses, trans = [], []
+        for t in range(T):
+            carry, (pose, tran) = step(
+                params, carry, {k: v[:, t] for k, v in frames.items()})
+            poses.append(pose)
+            trans.append(tran)
+        return torch.stack(poses, 1), torch.stack(trans, 1)
 
 
 def forward_offline_batched(params, body_model, cfg, frames_batched,

@@ -23,6 +23,8 @@ import tempfile
 import threading
 from typing import Dict, Iterable, List
 
+from .. import trace
+
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "HOST_FLAGS",
            "library_path", "build_all", "load", "host_library"]
 
@@ -129,7 +131,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            path = build_all([name])[0]
-            lib = ctypes.CDLL(path)
+            with trace.span("native.build"):
+                lib = ctypes.CDLL(build_all([name])[0])
             _LOADED[name] = lib
         return lib

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SigMPConfig
 from ..device import resolve_device
 from ..graphs import GraphedStep
@@ -88,12 +89,13 @@ class StreamingMultiplexer:
             x.select(axis, slot).copy_(f)
             return x
 
-        self._tick.set_carry({
-            k: {n: tuple(fresh(x, f, 1) for x, f in
-                         zip(hc, self._fresh["states"][n]))
-                for n, hc in v.items()} if k == "states"
-            else fresh(v, self._fresh[k], 0)
-            for k, v in self._tick.carry.items()})
+        with trace.span("mux.reset"):
+            self._tick.set_carry({
+                k: {n: tuple(fresh(x, f, 1) for x, f in
+                             zip(hc, self._fresh["states"][n]))
+                    for n, hc in v.items()} if k == "states"
+                else fresh(v, self._fresh[k], 0)
+                for k, v in self._tick.carry.items()})
 
     # -- the tick -------------------------------------------------------------
 
@@ -110,22 +112,27 @@ class StreamingMultiplexer:
         def f32(x, *shape):
             return torch.tensor(np.asarray(x, np.float32)).reshape(N, *shape)
 
-        frames = {
-            "j2dc": f32(j2dc, 33, 3),
-            "accc": f32(accc, 6, 3),
-            "oric": f32(oric, 6, 3, 3),
-            "first_tran": torch.zeros(N, 3),
-            "gravityc": f32(np.broadcast_to(sig_mp.DEFAULT_GRAVITY, (N, 3))
-                            if gravityc is None else gravityc, 3),
-            "first_frame": torch.as_tensor(
-                np.zeros(N, bool) if first_frame is None
-                else np.asarray(first_frame, bool)),
-            "first_tran_valid": torch.zeros(N, dtype=torch.bool),
-        }
-        if first_frame is not None and np.any(first_frame):
-            frames = {k: v.to(self.device) for k, v in frames.items()}
-            self._tick.set_carry(sig_mp.prescan_first_frame(
-                self._scan_params, self.body_model, self._tick.carry, frames,
-                self.cfg.int8_compute))
-        pose, tran = self._tick(frames)
-        return pose.cpu().numpy(), tran.cpu().numpy()
+        with trace.span("mux.step"):
+            with trace.span("mux.inputs"):
+                frames = {
+                    "j2dc": f32(j2dc, 33, 3),
+                    "accc": f32(accc, 6, 3),
+                    "oric": f32(oric, 6, 3, 3),
+                    "first_tran": torch.zeros(N, 3),
+                    "gravityc": f32(
+                        np.broadcast_to(sig_mp.DEFAULT_GRAVITY, (N, 3))
+                        if gravityc is None else gravityc, 3),
+                    "first_frame": torch.as_tensor(
+                        np.zeros(N, bool) if first_frame is None
+                        else np.asarray(first_frame, bool)),
+                    "first_tran_valid": torch.zeros(N, dtype=torch.bool),
+                }
+            if first_frame is not None and np.any(first_frame):
+                with trace.span("mux.prescan"):
+                    frames = {k: v.to(self.device) for k, v in frames.items()}
+                    self._tick.set_carry(sig_mp.prescan_first_frame(
+                        self._scan_params, self.body_model, self._tick.carry,
+                        frames, self.cfg.int8_compute))
+            pose, tran = self._tick(frames)
+            with trace.span("mux.readback"):
+                return pose.cpu().numpy(), tran.cpu().numpy()
