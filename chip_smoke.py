@@ -172,7 +172,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
    (default configuration) with the skinning's and the host renderer's
    seconds a frame; (c) ``view_aist_unity`` against the same call on the
    CPU, through the Unity text; (d) the ``compat`` facade's calls on the
-   card.
+   card;
+14. the batched LSTM-cell kernel (``robustcap::lstm_cell``,
+   ``csrc/lstm_cell_batched.cu``): (a) one layer at H = 512, 1024 and 1280
+   and B = 1, 64, 128, 256, 512, 1024 and 2048 through the operator, the
+   kernel and ``torch.lstm_cell`` with its rows copied in (the operator's
+   path above ``ROWS_DIRECT``), each held against the plain version within
+   ``CELL_BOUND``, the last two timed in a CUDA graph (the table from which
+   ``ROWS_DIRECT`` was set); at the rows of the kernel's main path (1, 64)
+   the kernel beside its bound, the plain version and ``torch.lstm_cell``
+   (``library_ms``); (b) the multiplexer at 64 slots (live mode, tail
+   kernel) over 300 mixed ticks, held slot by slot against the same ticks
+   with ``nn.rnn.rnn_step`` stacks within phase 4's bounds, and exactly 16
+   ``lstm_cell`` kernels a replayed tick (``torch.profiler``, whole ticks
+   in a marked range), with both ways' tick time and device time; (c)
+   ``run_sequences`` over a bucket of 64 rows and one of 2048 rows, the
+   operator's launches counted from zero (16 a frame-step and 4 in the
+   prescan at 64 rows, none at 2048), each held against ``rnn_step``
+   stacks. The kernel line's ``launches`` are (c)'s at 64 rows, its
+   ``replayed_per_tick`` (b)'s.
 
 It prints a JSON line with every kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Without a card it exits nonzero before
@@ -4588,6 +4606,275 @@ def check_views(params, model, dev, card):
     return {"serve_scan": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the batched LSTM-cell kernel
+# ---------------------------------------------------------------------------
+
+CELL_BOUND = 1e-5   # h and c: f32 sums of up to 2560 products, another order
+CELL_WIDTHS = (512, 1024, 1280)
+# the rows between the bundle's step (1), the live tick (64) and the
+# evaluation (2048), for the threshold of the kernel; the kernel line's rows
+CELL_ROWS = (1, 64, 128, 256, 512, 1024, 2048)
+CELL_MAIN_ROWS = (1, 64)
+CELL_TICKS, CELL_CAP = 300, 64
+CELL_PROFILED = 16   # graphed ticks in the profile that counts the kernels
+CELL_EVAL_T = 12     # frames of phase 14 (c)'s run_sequences buckets
+
+
+def _cell_operands(B, H, dev, seed):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) / H ** 0.5).to(dev)
+
+    ops = dict(x=torch.randn(B, H, generator=gen).to(dev),
+               h=torch.randn(B, H, generator=gen).to(dev),
+               c=torch.randn(B, H, generator=gen).to(dev), w_ih=u(4 * H, H),
+               w_hh=u(4 * H, H), b_ih=u(4 * H), b_hh=u(4 * H))
+    return ops, (torch.empty(2, B, H, device=dev),
+                 torch.empty(2, B, H, device=dev))
+
+
+def _cell_bound_ms(B, H):
+    r"""The layer's bound: weights, biases, x, h and c read once, h and c
+    written once; the two products' f32 operations."""
+    n_bytes = 4 * (8 * H * H + 8 * H + 3 * B * H + 2 * B * H)
+    return _bound_ms(n_bytes, 2 * B * (4 * H) * (2 * H))
+
+
+def _cell_layers(dev):
+    r"""Phase 14 (a): at each width and row count, the operator
+    ``robustcap::lstm_cell`` and both ways it can run a layer, the kernel
+    and ``torch.lstm_cell`` with its rows copied in (the operator's path
+    above ``ROWS_DIRECT``), each held against the plain version
+    (``nn.rnn.lstm_cell``) on the card and the two ways timed in a CUDA
+    graph, from which ``ROWS_DIRECT`` was set. At the kernel line's rows
+    the kernel beside its bound, the plain version and ``torch.lstm_cell``
+    alone (``library_ms``). Returns the kernel line's rows."""
+    import torch
+    from robustcap_tpu_torch.ops import lstm_cell as LC
+    rows, table = [], {}
+    for H in CELL_WIDTHS:
+        for B in CELL_ROWS:
+            ops, outs = _cell_operands(B, H, dev, seed=H + B)
+            want = LC.lstm_cell_plain(**ops)
+            ways = {
+                "operator": lambda: torch.ops.robustcap.lstm_cell(
+                    *ops.values(), *outs, 1),
+                "kernel": lambda: LC._launch(**ops, h_out=outs[0],
+                                             c_out=outs[1], layer=1),
+                "library": lambda: LC._lstm_cell_library(
+                    **ops, h_out=outs[0], c_out=outs[1], layer=1)}
+            errs = {}
+            for way, fn in ways.items():
+                outs[0].fill_(float("nan"))
+                outs[1].fill_(float("nan"))
+                fn()
+                torch.cuda.synchronize()
+                errs[way] = max(_max_err(outs[0][1], want[0]),
+                                _max_err(outs[1][1], want[1]))
+                _require(errs[way] <= CELL_BOUND,
+                         f"lstm_cell H={H} B={B} {way}: {errs[way]:.3e} "
+                         f"from the plain version > {CELL_BOUND:g}")
+            reps = 20 if B * H > 2 ** 19 else 50
+            t_ker = _time_graph_ms(ways["kernel"], reps)
+            t_lib = _time_graph_ms(ways["library"], reps)
+            table[H, B] = (t_ker, t_lib)
+            print(f"[lstm_cell] H={H} B={B}: the operator "
+                  f"{errs['operator']:.2e} from the plain version (the "
+                  f"{'kernel' if B <= LC.ROWS_DIRECT else 'library'}), the "
+                  f"kernel {errs['kernel']:.2e}, torch.lstm_cell with its "
+                  f"rows copied {errs['library']:.2e}", flush=True)
+            if B not in CELL_MAIN_ROWS:
+                continue
+            bound, by = _cell_bound_ms(B, H)
+            plain = _time_graph_ms(lambda: LC.lstm_cell_plain(**ops), reps)
+            lib = _time_graph_ms(lambda: torch.lstm_cell(
+                ops["x"], (ops["h"], ops["c"]), ops["w_ih"], ops["w_hh"],
+                ops["b_ih"], ops["b_hh"]), reps)
+            rows.append(dict(H=H, B=B, time_ms=round(t_ker, 5),
+                             bound_ms=round(bound, 5), bound_by=by,
+                             plain_ms=round(plain, 5),
+                             library_ms=round(lib, 5),
+                             library_rows_ms=round(t_lib, 5),
+                             max_abs_err=errs["kernel"]))
+            print(f"[lstm_cell] H={H} B={B}: kernel {t_ker:.5f} ms; bound "
+                  f"{bound:.5f} ms ({by}: {bound / t_ker * 100:.1f}% of it); "
+                  f"plain {plain:.5f} ms; library_ms (torch.lstm_cell) "
+                  f"{lib:.5f} ms, with its rows copied {t_lib:.5f} ms",
+                  flush=True)
+    print("[lstm_cell] rows threshold table, ms a layer (the kernel / "
+          "torch.lstm_cell with its rows copied): " + "; ".join(
+              f"H={H}: " + ", ".join(
+                  f"B={B} {table[H, B][0]:.4f}/{table[H, B][1]:.4f}"
+                  for B in CELL_ROWS) for H in CELL_WIDTHS), flush=True)
+    faster = [B for B in CELL_ROWS if all(table[H, B][0] <= table[H, B][1]
+                                          for H in CELL_WIDTHS)]
+    print(f"[lstm_cell] the kernel is faster at every width for B in "
+          f"{faster}; ROWS_DIRECT = {LC.ROWS_DIRECT}", flush=True)
+    return rows
+
+
+def _cell_tick_inputs(ticks, seed):
+    streams = [_stream_inputs(seed + k, _mixed(ticks, seed + k))
+               for k in range(CELL_CAP)]
+    return [np.stack([s[i] for s in streams], 1) for i in range(3)]
+
+
+def _cell_mux_run(params, model, dev, cfg, ins, ticks):
+    r"""``(poses [T, N, 24, 3, 3], trans [T, N, 3], the multiplexer)`` of
+    ``ticks`` ticks of ``CELL_CAP`` slots from a first frame."""
+    from robustcap_tpu_torch.streaming import StreamingMultiplexer
+    mux = StreamingMultiplexer(params, model, cfg, capacity=CELL_CAP,
+                               device=dev)
+    for _ in range(CELL_CAP):
+        mux.open_slot()
+    out = [mux.step(*(x[t] for x in ins), first_frame=(
+        np.ones(CELL_CAP, bool) if t == 0 else None)) for t in range(ticks)]
+    return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]),
+            mux)
+
+
+def _kernels_a_call(fn, n, name):
+    r"""Kernels whose name holds ``name`` a call of ``fn`` (which waits for
+    its device work), from ``torch.profiler``: ``fn`` once, then ``n``
+    calls inside a marked range; only kernels that start inside the range
+    count, so a profile that misses the start of its first call counts
+    whole calls all the same. ``None`` where the profile holds no device
+    event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function("phase14.counted"):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [e for e in events if str(e.device_type).endswith("CUDA")
+                 and not getattr(e, "is_user_annotation", False)]
+    if not on_device:
+        return None
+    mark = next(e for e in events if e.name == "phase14.counted"
+                and not str(e.device_type).endswith("CUDA"))
+    lo, hi = mark.time_range.start, mark.time_range.end
+    return sum(1 for e in on_device if name in e.name
+               and lo <= e.time_range.start <= hi) / n
+
+
+def _cell_ticks(params, model, dev):
+    r"""Phase 14 (b): the multiplexer at 64 slots (live mode, the tail
+    kernel) over ``CELL_TICKS`` ticks of mixed streams, each slot held
+    against the same ticks with ``nn.rnn.rnn_step`` in place of the
+    operator (the plain step) within phase 4's bounds; the graphed tick's
+    ``lstm_cell`` kernels from ``torch.profiler``, exactly 16 a replayed
+    tick (eight stacks of two layers) over ``CELL_PROFILED`` whole ticks;
+    its device time and the host's tick, both ways. Returns the kernels a
+    replayed tick."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.nn.rnn import rnn_step
+    cfg = dataclasses.replace(SigMPConfig.live_mode(), pallas_tail=True)
+    ins = _cell_tick_inputs(CELL_TICKS, 70)
+    runs, counts = {}, {}
+    for name in ("kernel", "plain"):
+        cells = sig_mp.rnn_step_cells
+        if name == "plain":
+            sig_mp.rnn_step_cells = rnn_step
+        try:
+            pose, tran, mux = _cell_mux_run(params, model, dev, cfg, ins,
+                                            CELL_TICKS)
+            last = [x[-1] for x in ins]
+            _, sec = _sync_time(lambda: [mux.step(*last) for _ in range(50)])
+            prof = _device_busy(lambda: mux.step(*last), CELL_PROFILED)
+            kernels = _kernels_a_call(lambda: mux.step(*last), CELL_PROFILED,
+                                      "lstm_cell_kernel")
+        finally:
+            sig_mp.rnn_step_cells = cells
+        _require(prof is not None and kernels is not None,
+                 "phase 14: torch.profiler recorded no device event in the "
+                 "graphed tick")
+        runs[name], counts[name] = (pose, tran), kernels
+        print(f"[lstm_cell] multiplexer {CELL_CAP} slots ({name} stacks): "
+              f"graphed tick {sec / 50 * 1e3:.3f} ms (host clock, frames up "
+              f"and poses back); " + _busy_text(prof, sec / 50 * 1e3)
+              + f"; lstm_cell kernels a replayed tick {kernels:g} (over "
+              f"{CELL_PROFILED} whole ticks)", flush=True)
+        _require(kernels == (16 if name == "kernel" else 0),
+                 f"phase 14: {kernels:g} lstm_cell kernels a replayed tick "
+                 f"({name} stacks)")
+    ok = True
+    for k in range(CELL_CAP):
+        ok &= _compare(f"multiplexer slot {k}, {CELL_TICKS} ticks, kernel "
+                       "vs plain stacks (card)",
+                       *((torch.from_numpy(p[:, k]), torch.from_numpy(t[:, k]))
+                         for p, t in (runs["kernel"], runs["plain"])))
+    _require(ok, "phase 14: multiplexer slots outside phase 4's bounds")
+    return counts["kernel"]
+
+
+def _cell_eval(params, model, dev):
+    r"""Phase 14 (c): ``run_sequences`` eagerly over one bucket of
+    ``CELL_MAIN_ROWS[-1]`` (64) rows and one of 2048 rows, ``CELL_EVAL_T``
+    frames each, the operator's launches counted from zero before each
+    call: 16 a frame-step and 4 in the batched prescan (rnn4 and rnn6) at
+    64 rows, none at 2048 (``torch.lstm_cell`` above ``ROWS_DIRECT``);
+    each held against the same call with ``nn.rnn.rnn_step`` stacks within
+    phase 4's bounds. Returns the 64-row call's launches."""
+    import torch
+    from robustcap_tpu_torch.config import SigMPConfig
+    from robustcap_tpu_torch.models import sig_mp
+    from robustcap_tpu_torch.nn.rnn import rnn_step
+    from robustcap_tpu_torch.ops import lstm_cell as LC
+    cfg = SigMPConfig(pallas_tail=True)
+    T = CELL_EVAL_T
+    counted = {}
+    for B in (CELL_MAIN_ROWS[-1], 2048):
+        want_n = 16 * T + 4 if B <= LC.ROWS_DIRECT else 0
+        run = _runner(params, model, cfg, _synthetic_seqs(B, T), dev)
+        torch.cuda.synchronize()
+        LC.LAUNCHES = 0
+        got = run()
+        torch.cuda.synchronize()
+        counted[B] = LC.LAUNCHES
+        cells = sig_mp.rnn_step_cells
+        sig_mp.rnn_step_cells = rnn_step
+        try:
+            plain = run()
+        finally:
+            sig_mp.rnn_step_cells = cells
+        print(f"[lstm_cell] run_sequences, one bucket of {B} rows x {T} "
+              f"frames: {counted[B]} lstm_cell launches (expected {want_n})",
+              flush=True)
+        _require(counted[B] == want_n,
+                 f"phase 14: run_sequences B={B}: {counted[B]} lstm_cell "
+                 f"launches, expected {want_n}")
+        _require(_compare(f"run_sequences B={B} T={T}: the operator against "
+                          "rnn_step stacks (card)", _stacked(got),
+                          _stacked(plain)),
+                 f"phase 14: run_sequences B={B} outside phase 4's bounds")
+    return counted[CELL_MAIN_ROWS[-1]]
+
+
+def check_lstm_cell(params, model, dev):
+    r"""Phase 14: the batched LSTM-cell kernel (``robustcap::lstm_cell``).
+    Returns the kernel line's rows (one per width at ``CELL_MAIN_ROWS``),
+    the launches of phase 14 (c)'s 64-row evaluation and the kernels a
+    replayed tick of phase 14 (b)."""
+    t_start = time.perf_counter()
+    rows = _cell_layers(dev)
+    per_tick = _cell_ticks(params, model, dev)
+    launches = _cell_eval(params, model, dev)
+    print(f"[lstm_cell] phase 14 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return rows, launches, per_tick
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4681,6 +4968,9 @@ def main():
         launches[key] += n
     print(f"[dynamics] phase 13 in {time.perf_counter() - t13:.1f} s",
           flush=True)
+    phase(14)
+    cell_rows, launches["lstm_cell"], cell_per_tick = check_lstm_cell(
+        params, model, dev)
 
     kernels = [
         dict(name="lstm_scan", route="cuda",
@@ -4708,6 +4998,13 @@ def main():
              launches=launches["serve_scan" if mode == "f32"
                                else f"serve_scan_{mode}"], **row)
         for mode, row in serve.items()]
+    kernels += [
+        dict(name="lstm_cell", rows=row.pop("B"), route="cuda",
+             operator="robustcap::lstm_cell",
+             source="robustcap_tpu_torch/csrc/lstm_cell_batched.cu",
+             replaces=None, launches=launches["lstm_cell"],
+             replayed_per_tick=cell_per_tick, **row)
+        for row in cell_rows]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     _require(not idle, f"kernels launched no time on their paths: {idle}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)

@@ -71,6 +71,7 @@ from ..nn.rnn import (init_net_apply, init_rnn_params, init_state,
 from ..ops.geometry_tail import (geometry_tail, geometry_tail_batched,
                                  sync_mp3d, tail_batched, tail_constants,
                                  tail_plain)
+from ..ops.lstm_cell import rnn_step_cells
 from ..ops.lstm_scan import prepare_lstm_scan, rnn_scan_chunked
 from ..ops.serve_scan import check_serve_cfg, serve_params_for, serve_scan
 
@@ -591,20 +592,23 @@ def prescan_first_frame(params, body_model, carry, frame0,
 
     ``frame0["first_frame"]`` is a host bool for one stream, or a ``[B]``
     bool tensor for a batch (``frame0``'s fields and the carry then have a
-    leading ``B``): every row is evaluated, and a row whose frame 0 is not
-    a first frame keeps its carry by a select."""
+    leading ``B``): every row is evaluated, its stacks as the batched step
+    evaluates them, and a row whose frame 0 is not a first frame keeps its
+    carry by a select."""
     first = frame0["first_frame"]
     batched = isinstance(first, torch.Tensor)
     if not batched and not first:
         return carry
     cat = _bcat if batched else _cat
+    stack_step = (_batched_stack_step(int8_compute) if batched
+                  else partial(rnn_step, int8_compute=int8_compute))
     j2dc, accc, oric = frame0["j2dc"], frame0["accc"], frame0["oric"]
     st = carry["states"]
-    out4, st4 = rnn_step(params["rnn4"],
-                         cat(accc, oric, _bbox_center_normalize(j2dc)),
-                         st["rnn4"], int8_compute=int8_compute)
-    out6, st6 = rnn_step(params["rnn6"], cat(accc, oric, j2dc, out4),
-                         st["rnn6"], int8_compute=int8_compute)
+    out4, st4 = stack_step(params["rnn4"],
+                           cat(accc, oric, _bbox_center_normalize(j2dc)),
+                           st["rnn4"])
+    out6, st6 = stack_step(params["rnn6"], cat(accc, oric, j2dc, out4),
+                           st["rnn6"])
     carry = dict(carry)
     if batched:
         carry["states"] = dict(st, rnn4=_state_where(first, st4, st["rnn4"]),
@@ -634,6 +638,27 @@ def _batched_consts(body_model):
     return hit[1]
 
 
+def _dense_f32(params) -> bool:
+    r"""True if a stack's linear1 and gate matrices are float32 tensors
+    (not bf16, not int8 records)."""
+    ws = [params["linear1"]["w"]] + [l[k] for l in params["layers"]
+                                     for k in ("w_ih", "w_hh")]
+    return all(isinstance(w, torch.Tensor) and w.dtype == torch.float32
+               for w in ws)
+
+
+def _batched_stack_step(int8_compute: bool):
+    r"""One stack of the batched step: float32 weights through
+    ``ops.lstm_cell.rnn_step_cells`` (one ``robustcap::lstm_cell`` call a
+    layer, the hand-written kernel on the card), bf16 weights and int8
+    records through ``nn.rnn.rnn_step``."""
+    def stack_step(params, x, state):
+        if _dense_f32(params):
+            return rnn_step_cells(params, x, state)
+        return rnn_step(params, x, state, int8_compute=int8_compute)
+    return stack_step
+
+
 def make_batched_step(body_model, cfg: SigMPConfig):
     r"""The steady step (``include_first_frame_step=False``) over a leading
     batch axis, in the branchless form the JAX package vmaps for its batched
@@ -644,7 +669,11 @@ def make_batched_step(body_model, cfg: SigMPConfig):
     rows per weight. With ``cfg.pallas_tail`` each tail is one call of the
     operator ``robustcap::geometry_tail`` over the B rows (one kernel launch
     on the card), as the JAX step runs its tail kernel under ``vmap``; the
-    other kernel flags are not read here.
+    other kernel flags are not read here. With float32 weights each LSTM
+    layer of a stack is one call of the operator ``robustcap::lstm_cell``
+    (``ops/lstm_cell.py``: one kernel launch on the card up to
+    ``ROWS_DIRECT`` rows, ``torch.lstm_cell`` above), whatever ``cfg``
+    says; bf16 and int8 weights go through ``nn.rnn.rnn_step``.
 
     ``step(params, carry, frame) -> (carry, (pose [B, 24, 3, 3],
     tran [B, 3]))``: the carry from ``init_carry(params,
@@ -654,7 +683,7 @@ def make_batched_step(body_model, cfg: SigMPConfig):
     value is read back to the host."""
     consts = _batched_consts(body_model)
     tail = geometry_tail_batched if cfg.pallas_tail else tail_batched
-    stack_step = partial(rnn_step, int8_compute=cfg.int8_compute)
+    stack_step = _batched_stack_step(cfg.int8_compute)
     conf_lo, conf_hi = cfg.conf_range
     inv_range = 1.0 / (conf_hi - conf_lo)
 
@@ -873,9 +902,11 @@ def forward_offline_batched(params, body_model, cfg, frames_batched,
     run. A row's frames past its own length are padding, which the caller
     discards; the step is causal, so they change no valid frame.
 
-    No kernel runs here, as in the JAX package's ``forward_offline_batched``:
-    ``cfg``'s ``pallas_tail`` is turned off before the step is built, and
-    the other ``pallas_*`` flags are not read. The batched evaluation
+    No tail kernel runs here, as in the JAX package's
+    ``forward_offline_batched``: ``cfg``'s ``pallas_tail`` is turned off
+    before the step is built, and the other ``pallas_*`` flags are not read
+    (float32 stacks still run their layers through ``robustcap::lstm_cell``,
+    see :func:`make_batched_step`). The batched evaluation
     (``eval.runner.run_sequences``) builds its step from the caller's
     ``cfg`` instead and keeps the tail kernel, as the JAX runner does.
     Params and body model must already be on ``device``; with frames

@@ -31,7 +31,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "HOST_FLAGS",
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_scan", "geometry_tail", "serve_scan")
+SOURCES = ("lstm_scan", "geometry_tail", "serve_scan", "lstm_cell_batched")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")

@@ -300,9 +300,9 @@ class _Ops(TorchDispatchMode):
 
 
 def test_offline_batched_runs_no_kernel(world, f32_runs):
-    r"""With ``pallas_tail`` the batched path still runs no kernel, as the
-    JAX package's: the tail operator is never called, and the result is
-    the flag-off run's bit for bit."""
+    r"""With ``pallas_tail`` the batched path still runs no tail kernel, as
+    the JAX package's: the tail operator is never called, and the result
+    is the flag-off run's bit for bit."""
     _, tm, _, tp, _, frames = world
     with _Ops() as ops:
         got = tsig.forward_offline_batched(

@@ -328,6 +328,26 @@ def test_every_caller_reaches_the_operator(world, serve_bundle):
     assert torch.equal(got[3]["j_temp"], outs[-1])
 
 
+def _op_calls(path, name):
+    prog = torch.export.load(path)
+    return sum(1 for n in prog.graph.nodes if n.op == "call_function"
+               and f"robustcap.{name}" in str(n.target))
+
+
+def test_step_programs_hold_the_cell_operator(serve_bundle, int8_bundle):
+    r"""A float32 bundle's step program runs each LSTM layer of its eight
+    stack evaluations (rnn2, rnn3, the speculative and the final rnn7/rnn8
+    heads, rnn4, rnn6) as one ``robustcap::lstm_cell`` call, and its
+    prescan program rnn4's and rnn6's; an int8 bundle's programs hold
+    none (``nn.rnn.rnn_step``)."""
+    path = serve_bundle[0]
+    assert _op_calls(os.path.join(path, "step.pt2"), "lstm_cell") == 16
+    assert _op_calls(os.path.join(path, "prescan.pt2"), "lstm_cell") == 4
+    for name in ("step.pt2", "prescan.pt2"):
+        assert _op_calls(os.path.join(int8_bundle[0], name),
+                         "lstm_cell") == 0
+
+
 def test_live_server_runs_on_bundle(serve_bundle):
     r"""The live engine takes a loaded bundle as its net."""
     engine = LiveServer(net=serve_bundle[2])
