@@ -182,10 +182,16 @@ Phases, each of which raises on failure (the script then exits nonzero):
    ``ROWS_DIRECT`` was set); at the rows of the kernel's main path (1, 64)
    the kernel beside its bound, the plain version and ``torch.lstm_cell``
    (``library_ms``); (b) the multiplexer at 64 slots (live mode, tail
-   kernel) over 300 mixed ticks, held slot by slot against the same ticks
-   with ``nn.rnn.rnn_step`` stacks within phase 4's bounds, and exactly 16
-   ``lstm_cell`` kernels a replayed tick (``torch.profiler``, whole ticks
-   in a marked range), with both ways' tick time and device time; (c)
+   kernel) over 300 mixed ticks with resets and first frames, bit for bit
+   against the tick as it was before it was packed (pageable uploads,
+   eager resets and prescans), held slot by slot against the same ticks
+   with ``nn.rnn.rnn_step`` stacks within phase 4's bounds, no capture
+   after it is made, one replay a tick of its steady or opening graph,
+   one pinned upload and one pinned read-back a steady tick, and exactly
+   16 ``lstm_cell`` kernels a replayed tick (``torch.profiler``, whole
+   ticks in a marked range), with each way's tick time, device time and
+   the host's time before a steady and an opening tick's first device
+   work; (c)
    ``run_sequences`` over a bucket of 64 rows and one of 2048 rows, the
    operator's launches counted from zero (16 a frame-step and 4 in the
    prescan at 64 rows, none at 2048), each held against ``rnn_step``
@@ -2233,8 +2239,12 @@ def _check_multiplexer(params, model, dev, cfg, ticks=MUX_TICKS,
         step(sp, carry, frames)
         _, e_sec = _sync_time(lambda: [step(sp, carry, frames)
                                        for _ in range(7)])
-        replays = m._tick.replays + (mux._tick.replays if cap == MUX_CAP
-                                     else 0)
+        graphs = {"steady": m._steady.replays,
+                  "opening": m._opening.replays}
+        if cap == MUX_CAP:
+            graphs = {k: n + getattr(mux, f"_{k}").replays
+                      for k, n in graphs.items()}
+        replays = sum(graphs.values())
         launches[cap] = (geometry_tail.LAUNCHES, tails * replays)
         print(f"[serving] {what} capacity {cap}: graphed tick "
               f"{g_sec / 7 * 1e3:.3f} ms (frames up, pose and tran back to "
@@ -2242,8 +2252,8 @@ def _check_multiplexer(params, model, dev, cfg, ticks=MUX_TICKS,
               "synchronized); graphed tick: "
               + _busy_text(prof, g_sec / 7 * 1e3)
               + f"; tail kernels a graphed tick {tails:g} (torch.profiler); "
-              f"{replays} ticks replayed, {geometry_tail.LAUNCHES} tail "
-              "launches issued (eager steps and capture warm-ups)",
+              f"{replays} ticks replayed {graphs}, {geometry_tail.LAUNCHES} "
+              "tail launches issued (eager steps and capture warm-ups)",
               flush=True)
     return launches
 
@@ -2292,14 +2302,17 @@ def _check_tail_bundle(params, model, dev, root, seq, chunk):
                  f"{mode} bundle outside its bounds")
         K = len(chunk[0])
         per_frame = _tail_calls(prof, f"{mode} bundle, graphed frame")
-        chunk_prof = _device_busy(lambda: bundle.forward_chunk(*chunk), 1)
-        per_chunk = _tail_calls(chunk_prof, f"{mode} bundle, {K}-frame "
-                                "step-loop chunk")
+        # counted inside a marked range after one chunk outside it, so
+        # that a profile missing its first replays counts whole chunks
+        per_chunk = _kernels_a_call(lambda: bundle.forward_chunk(*chunk), 1,
+                                    "geometry_tail_kernel")
+        _require(per_chunk is not None, f"{mode} bundle, {K}-frame "
+                 "step-loop chunk: torch.profiler recorded no device event")
         _require(per_frame == 2 and per_chunk == 2 * K,
                  f"{mode} bundle: {per_frame} tail kernels a graphed frame "
                  f"(of {prof[0]} kernels and copies), expected 2; "
-                 f"{per_chunk} in the {K}-frame step-loop chunk (of "
-                 f"{chunk_prof[0]}), expected {2 * K}")
+                 f"{per_chunk} in the {K}-frame step-loop chunk, expected "
+                 f"{2 * K}")
         launches = geometry_tail.LAUNCHES
         replayed = per_frame * bundle._online.replays
         out, err = child.communicate(timeout=CHILD_TIMEOUT_S)
@@ -4722,18 +4735,97 @@ def _cell_tick_inputs(ticks, seed):
     return [np.stack([s[i] for s in streams], 1) for i in range(3)]
 
 
-def _cell_mux_run(params, model, dev, cfg, ins, ticks):
-    r"""``(poses [T, N, 24, 3, 3], trans [T, N, 3], the multiplexer)`` of
-    ``ticks`` ticks of ``CELL_CAP`` slots from a first frame."""
-    from robustcap_tpu_torch.streaming import StreamingMultiplexer
-    mux = StreamingMultiplexer(params, model, cfg, capacity=CELL_CAP,
-                               device=dev)
-    for _ in range(CELL_CAP):
-        mux.open_slot()
-    out = [mux.step(*(x[t] for x in ins), first_frame=(
-        np.ones(CELL_CAP, bool) if t == 0 else None)) for t in range(ticks)]
-    return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]),
-            mux)
+def _cell_schedule(ticks):
+    r"""Phase 14 (b)'s ``[(slots reset before the tick, first-frame
+    rows)]``: every slot opens on tick 0; from then on every seventh tick
+    resets two slots, one starting its session on that tick and one on the
+    next, and every eleventh gives a slot that was not reset a first
+    frame."""
+    plan = []
+    for t in range(ticks):
+        resets, first = [], np.full(CELL_CAP, t == 0)
+        if t % 7 == 3:
+            resets = [5 * t % CELL_CAP, (5 * t + 17) % CELL_CAP]
+            first[resets[0]] = True
+        if t % 7 == 4:
+            first[(5 * (t - 1) + 17) % CELL_CAP] = True
+        if t % 11 == 5:
+            first[3 * t % CELL_CAP] = True
+        plan.append((resets, first))
+    return plan
+
+
+class _ParentTick:
+    r"""The multiplexer's tick before it was packed, for phase 14 (b) to
+    hold the packed tick against bit for bit: a ``GraphedStep`` captured
+    on the first tick, seven pageable uploads into its frame buffers a
+    tick, a slot reset as a clone of the whole carry with the row replaced,
+    the batched prescan run eagerly on a tick that opens a session, and two
+    clones and two pageable read-backs."""
+
+    def __init__(self, params, model, cfg, capacity, dev):
+        from robustcap_tpu_torch.graphs import GraphedStep
+        from robustcap_tpu_torch.models import sig_mp
+        from robustcap_tpu_torch.nn.rnn import prepare_scan_params
+        self.N, self.dev, self.model, self.cfg = capacity, dev, model, cfg
+        self.sp = prepare_scan_params(params, cfg.int8_compute)
+        self.fresh = sig_mp.init_carry(params)
+        self.tick = GraphedStep(
+            sig_mp.make_batched_step(model, cfg), self.sp,
+            sig_mp.init_carry(params, batch_shape=(capacity,)))
+
+    def reset_slot(self, slot):
+        def fresh(x, f, axis):
+            x = x.clone()
+            x.select(axis, slot).copy_(f)
+            return x
+
+        self.tick.set_carry({
+            k: {n: tuple(fresh(x, f, 1) for x, f in
+                         zip(hc, self.fresh["states"][n]))
+                for n, hc in v.items()} if k == "states"
+            else fresh(v, self.fresh[k], 0)
+            for k, v in self.tick.carry.items()})
+
+    def step(self, j2dc, accc, oric, first_frame=None):
+        import torch
+        from robustcap_tpu_torch.models import sig_mp
+        N = self.N
+
+        def f32(x, *shape):
+            return torch.tensor(np.asarray(x, np.float32)).reshape(N, *shape)
+
+        frames = {
+            "j2dc": f32(j2dc, 33, 3), "accc": f32(accc, 6, 3),
+            "oric": f32(oric, 6, 3, 3), "first_tran": torch.zeros(N, 3),
+            "gravityc": f32(np.broadcast_to(sig_mp.DEFAULT_GRAVITY, (N, 3)),
+                            3),
+            "first_frame": torch.as_tensor(
+                np.zeros(N, bool) if first_frame is None
+                else np.asarray(first_frame, bool)),
+            "first_tran_valid": torch.zeros(N, dtype=torch.bool)}
+        if first_frame is not None and np.any(first_frame):
+            frames = {k: v.to(self.dev) for k, v in frames.items()}
+            self.tick.set_carry(sig_mp.prescan_first_frame(
+                self.sp, self.model, self.tick.carry, frames,
+                self.cfg.int8_compute))
+        pose, tran = self.tick(frames)
+        return pose.cpu().numpy(), tran.cpu().numpy()
+
+
+def _cell_mux_run(mux, ins, plan):
+    r"""``(poses [T, N, 24, 3, 3], trans [T, N, 3])`` of the ticks of
+    ``plan`` (:func:`_cell_schedule`) on ``mux``, whose every slot is reset
+    first."""
+    for s in range(CELL_CAP):
+        mux.reset_slot(s)
+    out = []
+    for t, (resets, first) in enumerate(plan):
+        for s in resets:
+            mux.reset_slot(s)
+        out.append(mux.step(*(x[t] for x in ins),
+                            first_frame=first if first.any() else None))
+    return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
 
 
 def _kernels_a_call(fn, n, name):
@@ -4766,48 +4858,170 @@ def _kernels_a_call(fn, n, name):
                and lo <= e.time_range.start <= hi) / n
 
 
+def _on_device(e):
+    return (str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False))
+
+
+def _tick_leads(ticks, n):
+    r"""For each ``{kind: fn}`` of ``ticks`` (a call that waits for its
+    device work), ``n`` calls each inside a marked range of
+    ``torch.profiler`` (after one outside): the medians of the host's ms
+    from the call's start to the first kernel or copy it starts on the
+    card, of its kernels and copies, and of their device ms, and the copies
+    between host and card a call by name. ``None`` where the profile holds
+    no device event."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for kind, fn in ticks.items():
+            fn()
+            for _ in range(n):
+                with record_function(f"phase14.{kind}"):
+                    fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if _on_device(e))
+    if not on_dev:
+        return None
+    out = {}
+    for kind in ticks:
+        leads, counts, work, copies = [], [], [], {}
+        for m in events:
+            if (m.name != f"phase14.{kind}"
+                    or str(m.device_type).endswith("CUDA")):
+                continue
+            lo, hi = m.time_range.start, m.time_range.end
+            inside = [(a, b, name) for a, b, name in on_dev if lo <= a <= hi]
+            if not inside:
+                continue
+            leads.append((inside[0][0] - lo) / 1e3)
+            counts.append(len(inside))
+            work.append(sum(b - a for a, b, _ in inside) / 1e3)
+            for _, _, name in inside:
+                if "HtoD" in name or "DtoH" in name:
+                    copies[name] = copies.get(name, 0) + 1
+        _require(len(leads) == n, f"phase 14: {len(leads)} of {n} "
+                 f"{kind} ticks ran on the card inside their marks")
+        out[kind] = (statistics.median(leads), statistics.median(counts),
+                     statistics.median(work),
+                     {k: v / n for k, v in copies.items()})
+    return out
+
+
 def _cell_ticks(params, model, dev):
     r"""Phase 14 (b): the multiplexer at 64 slots (live mode, the tail
-    kernel) over ``CELL_TICKS`` ticks of mixed streams, each slot held
-    against the same ticks with ``nn.rnn.rnn_step`` in place of the
-    operator (the plain step) within phase 4's bounds; the graphed tick's
-    ``lstm_cell`` kernels from ``torch.profiler``, exactly 16 a replayed
-    tick (eight stacks of two layers) over ``CELL_PROFILED`` whole ticks;
-    its device time and the host's tick, both ways. Returns the kernels a
-    replayed tick."""
+    kernel) over ``CELL_TICKS`` ticks of mixed streams with resets and
+    first frames (:func:`_cell_schedule`), bit for bit against the tick as
+    it was before it was packed (:class:`_ParentTick`: pageable uploads,
+    eager resets and prescans), and each slot held against the same ticks
+    with ``nn.rnn.rnn_step`` in place of the operator (the plain step)
+    within phase 4's bounds. The packed tick captures nothing after it is
+    made and replays one graph a tick, each steady tick with one upload
+    and one read-back. For each way: the graphed tick's ``lstm_cell``
+    kernels from ``torch.profiler``, exactly 16 a replayed tick (eight
+    stacks of two layers) over ``CELL_PROFILED`` whole ticks; the steady
+    and the opening tick's host ms, kernels, device time and the host's
+    time before their first device work. Returns the kernels a replayed
+    tick."""
+    import itertools
+
     import torch
+    from robustcap_tpu_torch import trace
     from robustcap_tpu_torch.config import SigMPConfig
     from robustcap_tpu_torch.models import sig_mp
     from robustcap_tpu_torch.nn.rnn import rnn_step
+    from robustcap_tpu_torch.streaming import StreamingMultiplexer
     cfg = dataclasses.replace(SigMPConfig.live_mode(), pallas_tail=True)
     ins = _cell_tick_inputs(CELL_TICKS, 70)
+    plan = _cell_schedule(CELL_TICKS)
+    n_open = sum(1 for r, f in plan if r or f.any())
     runs, counts = {}, {}
-    for name in ("kernel", "plain"):
+    for name in ("kernel", "parent", "plain"):
         cells = sig_mp.rnn_step_cells
         if name == "plain":
             sig_mp.rnn_step_cells = rnn_step
         try:
-            pose, tran, mux = _cell_mux_run(params, model, dev, cfg, ins,
-                                            CELL_TICKS)
+            mux = (_ParentTick(params, model, cfg, CELL_CAP, dev)
+                   if name == "parent" else
+                   StreamingMultiplexer(params, model, cfg,
+                                        capacity=CELL_CAP, device=dev))
+            trace.clear()
+            trace.start()
+            try:
+                runs[name] = _cell_mux_run(mux, ins, plan)
+            finally:
+                trace.stop()
+            captures = sum(1 for sp in trace.spans()
+                           if sp[0] == "graph.capture")
+            trace.clear()
+            replays = ({"steady": mux._steady.replays,
+                        "opening": mux._opening.replays}
+                       if name != "parent" else {"graph": mux.tick.replays})
             last = [x[-1] for x in ins]
+            slot = itertools.count()
+
+            def opening():
+                s = next(slot) % CELL_CAP
+                mux.reset_slot(s)
+                return mux.step(*last, first_frame=np.arange(CELL_CAP) == s)
+
             _, sec = _sync_time(lambda: [mux.step(*last) for _ in range(50)])
+            _, open_sec = _sync_time(lambda: [opening() for _ in range(50)])
             prof = _device_busy(lambda: mux.step(*last), CELL_PROFILED)
             kernels = _kernels_a_call(lambda: mux.step(*last), CELL_PROFILED,
                                       "lstm_cell_kernel")
+            leads = _tick_leads({"steady": lambda: mux.step(*last),
+                                 "opening": opening}, CELL_PROFILED)
         finally:
             sig_mp.rnn_step_cells = cells
-        _require(prof is not None and kernels is not None,
-                 "phase 14: torch.profiler recorded no device event in the "
-                 "graphed tick")
-        runs[name], counts[name] = (pose, tran), kernels
-        print(f"[lstm_cell] multiplexer {CELL_CAP} slots ({name} stacks): "
-              f"graphed tick {sec / 50 * 1e3:.3f} ms (host clock, frames up "
+        _require(prof is not None and kernels is not None
+                 and leads is not None, "phase 14: torch.profiler recorded "
+                 "no device event in the graphed tick")
+        counts[name] = kernels
+        print(f"[lstm_cell] multiplexer {CELL_CAP} slots ({name}): "
+              f"{CELL_TICKS} ticks ({n_open} opening), replays {replays}, "
+              f"graph captures during them {captures}; steady tick "
+              f"{sec / 50 * 1e3:.3f} ms, opening tick (a reset and a first "
+              f"frame) {open_sec / 50 * 1e3:.3f} ms (host clock, frames up "
               f"and poses back); " + _busy_text(prof, sec / 50 * 1e3)
               + f"; lstm_cell kernels a replayed tick {kernels:g} (over "
               f"{CELL_PROFILED} whole ticks)", flush=True)
-        _require(kernels == (16 if name == "kernel" else 0),
+        for kind, (lead, n_dev, work, copies) in leads.items():
+            print(f"[lstm_cell] multiplexer {CELL_CAP} slots ({name}), "
+                  f"{kind} tick under torch.profiler: host {lead:.3f} ms "
+                  f"before its first device work, {n_dev:g} kernels and "
+                  f"copies, {work:.3f} ms of device work; copies between "
+                  f"host and card a tick {copies}", flush=True)
+        _require(kernels == (0 if name == "plain" else 16),
                  f"phase 14: {kernels:g} lstm_cell kernels a replayed tick "
-                 f"({name} stacks)")
+                 f"({name})")
+        if name == "kernel":
+            _require(captures == 0 and replays == {
+                "steady": CELL_TICKS - n_open, "opening": n_open},
+                f"phase 14: the packed tick captured {captures} graphs "
+                f"after it was made, replays {replays}")
+            steady_copies = leads["steady"][3]
+            _require(sorted(steady_copies.values()) == [1, 1]
+                     and not any("Pageable" in k for k in steady_copies),
+                     f"phase 14: a steady packed tick's copies between "
+                     f"host and card {steady_copies}, expected one pinned "
+                     "upload and one pinned read-back")
+    for i, what in enumerate(("pose", "tran")):
+        a, b = runs["kernel"][i], runs["parent"][i]
+        same = np.array_equal(a, b)
+        print(f"[lstm_cell] multiplexer {CELL_CAP} slots, {CELL_TICKS} "
+              f"ticks with resets and first frames: the packed tick's "
+              f"{what} against the parent's path "
+              f"{'bit for bit' if same else 'DIFFER'} (max abs "
+              f"{np.abs(a - b).max():.3e})", flush=True)
+        _require(same, f"phase 14: the packed tick's {what} differs from "
+                 "the parent's path")
     ok = True
     for k in range(CELL_CAP):
         ok &= _compare(f"multiplexer slot {k}, {CELL_TICKS} ticks, kernel "

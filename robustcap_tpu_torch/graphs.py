@@ -10,6 +10,8 @@ launch per frame. :class:`GraphedStep` does that for
 ``step(params, carry, frame) -> (carry, out)``: the frame is copied into
 static buffers, the carry lives in static buffers that the graph itself
 updates, and the parameters stay where they were at capture.
+:class:`GraphedCall` captures a call over static buffers that are all the
+caller's (the multiplexer's tick, whose frames and outputs are packed).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from . import trace
 from .device import tree_map
 
-__all__ = ["GraphedStep"]
+__all__ = ["GraphedStep", "GraphedCall", "copy_into"]
 
 
 def _pairs(dst, src):
@@ -35,7 +37,7 @@ def _pairs(dst, src):
         yield dst, src
 
 
-def _copy_into(dst, src):
+def copy_into(dst, src):
     r"""Copy every leaf of ``src`` into the same leaf of ``dst``. A source
     leaf that shares memory with a destination buffer (a carry entry that
     a step passes through, or a view of one) is copied out first, so that
@@ -90,7 +92,7 @@ class GraphedStep:
     def set_carry(self, carry):
         r"""Continue from ``carry`` (a tree of the carry's structure)."""
         if self._cuda:
-            _copy_into(self._carry, carry)
+            copy_into(self._carry, carry)
         else:
             self._carry = carry
 
@@ -104,22 +106,55 @@ class GraphedStep:
                 self._capture(frame)
         with trace.span("graph.replay"):
             if not captured:
-                _copy_into(self._frame, frame)
+                copy_into(self._frame, frame)
             self._graph.replay()
             self.replays += 1
             return tree_map(torch.clone, self._out)
 
     def _capture(self, frame):
-        dev = self.device
-        self._frame = tree_map(lambda t: t.to(dev, copy=True), frame)
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.step(self.params, self._carry, self._frame)
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            new_carry, out = self.step(self.params, self._carry, self._frame)
-            _copy_into(self._carry, new_carry)
-        self._graph, self._out = graph, out
+        self._frame = tree_map(lambda t: t.to(self.device, copy=True), frame)
+        self._graph, (_, self._out) = _capture_graph(
+            lambda: self.step(self.params, self._carry, self._frame),
+            lambda result: copy_into(self._carry, result[0]), self.device)
+
+
+def _capture_graph(run, commit, device):
+    r"""A CUDA graph of ``commit(run())``: ``run()`` once on a side stream
+    first (a warm-up whose result is thrown away, so ``run`` must not write
+    what it reads), then captured together with ``commit``, which writes
+    the result into static buffers. Returns ``(graph, result)``, the result
+    in the graph's own memory."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        run()
+    current.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        result = run()
+        commit(result)
+    return graph, result
+
+
+class GraphedCall:
+    r"""``commit(run())`` over static buffers (``run`` reads them and
+    ``commit`` writes its result into them). On the card it is captured
+    when this is made and each call replays the graph
+    (:attr:`replays` counts them); on the CPU each call runs it directly."""
+
+    def __init__(self, run, commit, device):
+        self.replays = 0
+        self._run, self._commit = run, commit
+        self._graph = None
+        if device.type == "cuda":
+            with trace.span("graph.capture"):
+                self._graph, _ = _capture_graph(run, commit, device)
+
+    def __call__(self):
+        if self._graph is None:
+            self._commit(self._run())
+            return
+        with trace.span("graph.replay"):
+            self._graph.replay()
+            self.replays += 1

@@ -167,6 +167,127 @@ def test_multiplexer_with_tail_kernel_matches_jax(world):
             np.testing.assert_allclose(g, p, atol=ATOL_PORT)
 
 
+def _drive_schedule(world, cap, T, resets, firsts, seed, jax_too=True):
+    r"""``cap`` sessions over ``T`` ticks: at tick t the slots in
+    ``resets[t]`` are reset before the tick and the rows in ``firsts[t]``
+    carry a first frame (tick 0: every row). Each row is held against a
+    ``StreamingNet`` of its own driven the same way (``reset_states`` at a
+    reset), and with ``jax_too`` every tick against JAX's multiplexer."""
+    jm, tm, jp, tp = world
+    streams = [make_inputs(seed + k, (CONFS[k % 3] * T)[:T])
+               for k in range(cap)]
+    mux = StreamingMultiplexer(tp, tm, SigMPConfig(), capacity=cap,
+                               device="cpu")
+    jmux = JaxMultiplexer(jp, jm, JaxConfig(), capacity=cap) if jax_too \
+        else None
+    nets = [tsig.StreamingNet(tp, tm, SigMPConfig(), device="cpu")
+            for _ in range(cap)]
+    assert [mux.open_slot() for _ in range(cap)] == list(range(cap))
+    if jmux is not None:
+        [jmux.open_slot() for _ in range(cap)]
+    for t in range(T):
+        batch = _tick(streams, range(cap), t, cap)
+        first = np.zeros(cap, bool)
+        first[list(firsts.get(t, range(cap) if t == 0 else ()))] = True
+        for s in resets.get(t, ()):
+            mux.reset_slot(s)
+            nets[s].reset_states()
+            if jmux is not None:
+                jmux.reset_slot(s)
+        ff = first if first.any() else None
+        got = mux.step(*batch, first_frame=ff)
+        for k, net in enumerate(nets):
+            want = net.forward_online(*(x[k] for x in batch),
+                                      first_frame=bool(first[k]))
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g[k], w.numpy(), atol=ATOL_PORT)
+        if jmux is not None:
+            for g, w in zip(got, jmux.step(*batch, first_frame=ff)):
+                np.testing.assert_allclose(g, np.asarray(w), atol=ATOL_JAX)
+    return mux
+
+
+def test_two_resets_and_a_first_frame_in_one_tick(world):
+    r"""Two slots reset in one tick, each starting a session there, and a
+    first frame on a third row that was not reset: one opening tick, held
+    row by row against ``StreamingNet`` and against JAX's multiplexer."""
+    _drive_schedule(world, cap=4, T=5, resets={2: (0, 2)},
+                    firsts={2: (0, 2, 3)}, seed=80)
+
+
+def test_reset_with_first_frame_a_tick_later(world):
+    r"""A slot reset on one tick whose first frame comes on the next: the
+    reset tick steps the fresh row without a prescan, the next one
+    prescans it."""
+    _drive_schedule(world, cap=3, T=5, resets={2: (1,)}, firsts={3: (1,)},
+                    seed=90)
+
+
+def test_returned_arrays_survive_the_next_tick(world):
+    r"""The arrays a tick returns are its own: the next tick (an opening
+    one and a steady one) leaves them as they were."""
+    _, tm, _, tp = world
+    cap = 2
+    mux = StreamingMultiplexer(tp, tm, SigMPConfig(), capacity=cap,
+                               device="cpu")
+    streams = [make_inputs(100 + k, CONFS[k][:3]) for k in range(cap)]
+    outs = []
+    for t in range(3):
+        outs.append(mux.step(*_tick(streams, range(cap), t, cap),
+                             first_frame=np.ones(cap, bool) if t == 0
+                             else None))
+        if t == 0:
+            kept = [x.copy() for x in outs[0]]
+    for got, was in zip(outs[0], kept):
+        np.testing.assert_array_equal(got, was)
+    for a, b in zip(outs[0], outs[1]):
+        assert not np.shares_memory(a, b)
+        assert not np.array_equal(a, b)
+
+
+def _rows(carry):
+    r"""Every leaf of a carry with its row axis (1 for the states)."""
+    for k, v in carry.items():
+        if k == "states":
+            yield from ((x, 1) for hc in v.values() for x in hc)
+        else:
+            yield v, 0
+
+
+def test_carries_after_reset_show_the_fresh_row(world):
+    r"""``carries`` read after ``reset_slot`` shows the reset row fresh
+    and the others as they were; the ticks after the read give what they
+    give without it, bit for bit."""
+    _, tm, _, tp = world
+    cap = 3
+    streams = [make_inputs(110 + k, CONFS[k][:4]) for k in range(cap)]
+    muxes = [StreamingMultiplexer(tp, tm, SigMPConfig(), capacity=cap,
+                                  device="cpu") for _ in range(2)]
+    outs = [[], []]
+    for t in range(4):
+        batch = _tick(streams, range(cap), t, cap)
+        if t == 2:
+            before = [x.clone() for x, _ in _rows(muxes[0].carries)]
+            for mux in muxes:
+                mux.reset_slot(1)
+            after = list(_rows(muxes[0].carries))
+            fresh = [x for x, _ in _rows(tsig.init_carry(tp))]
+            assert len(after) == len(before) == len(fresh)
+            for (x, axis), b, f in zip(after, before, fresh):
+                torch.testing.assert_close(x.select(axis, 1), f, rtol=0,
+                                           atol=0)
+                for row in (0, 2):
+                    torch.testing.assert_close(x.select(axis, row),
+                                               b.select(axis, row), rtol=0,
+                                               atol=0)
+        for mux, out in zip(muxes, outs):
+            out.append(mux.step(*batch, first_frame=(
+                np.ones(cap, bool) if t == 0 else None)))
+    for a, b in zip(*outs):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
 @pytest.mark.parametrize("flag", ["pallas_inertial", "pallas_serve"])
 def test_multiplexer_refuses_kernel_flags(world, flag):
     r"""The batched tick runs no LSTM-scan or serve kernel: either flag
